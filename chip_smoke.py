@@ -1,24 +1,33 @@
 """Drive the PyTorch/CUDA port once on one NVIDIA GPU and check it.
 
     python3 chip_smoke.py            # the 256^3 bench configuration
+    python3 chip_smoke.py --n 64     # a quick check after a kernel edit
 
 Phases (any failure exits non-zero and prints no result line):
   1. require CUDA; print the card (nvidia-smi) and the torch / CUDA versions;
   2. build the CUDA kernels from csrc/ (nvcc) and print the build time;
   3. main path at 256^3 in the bench configuration (solve fp32, V-cycle
-     fp32 with bf16 edge weights, tol 1e-5, 200 iterations): the port's
-     splash_scene -> build_setup -> project, with every kernel launch
+     fp32 with bf16 edge weights, band-restricted boundary passes
+     (pallas_band_strip=128, the default), tol 1e-5, 200 iterations): the
+     port's splash_scene -> build_setup -> project, with every kernel launch
      counter reset just before and read just after; the counts must equal
-     what the hierarchy and the iteration count imply;
+     what the hierarchy, the pass plan and the iteration count imply;
   4. each kernel against its plain PyTorch version on random inputs (a
      seeded torch.Generator) on the levels of that hierarchy, with bf16 and
-     fp32 edge weights, and each kernel's time beside the plain version's at
-     the fine-level shape;
+     fp32 edge weights: the full-grid and band-restricted blocks, the band
+     pass alone, the bf16-field blocks, the CG step and the residual; and
+     each kernel's time beside the plain version's at the fine-level shape;
   5. the best of 3 solve times (mgpcg.solve, as bench.py times the JAX
-     package) with the kernels and with kernel_mode="torch", and the two
-     projections compared;
+     package) with the kernels, with kernel_mode="torch", with full-grid
+     boundary passes (pallas_band_strip=0) and with bf16 fields
+     (mg_field_dtype=bfloat16); the projections compared; a bf16-field
+     projection with exact launch counts;
   6. a small fp64 projection on the card checked against a direct sparse
-     solve of the assembled system.
+     solve of the assembled system;
+  7. the frame loop: simulate.run, 4 frames at 256^3 in the CLI's --fp32
+     configuration, launch counts exact over the whole run; per frame the
+     iterations, residual, divergence, stage seconds and window reuse;
+     frames 1-2 repeated with kernel_mode="torch" and compared.
 The last lines are the kernels JSON, the nvidia-smi line, and
 {"ok": true, "device": {...}}.
 """
@@ -76,6 +85,47 @@ def rel_err(got, want) -> tuple[float, float]:
     return diff, diff / max(scale, 1e-300)
 
 
+def bf16_ulp(scale: float) -> float:
+    """One bfloat16 ulp at magnitude `scale` (8 significant bits)."""
+    import math
+
+    return 2.0 ** (math.floor(math.log2(scale)) - 7) if scale > 0 else 0.0
+
+
+def expected_launches(hier, config, iters: int, warm: bool = False) -> dict:
+    """Kernel launches of one projection (project: solve + the recomputed
+    residual) with `iters` CG iterations: every V-cycle (iters + 1) runs a
+    downstroke and an upstroke block per smoothed level; `pass_plan` says
+    which passes of each block are band-only.  A warm start adds the
+    initial residual."""
+    import torch
+
+    from geometricmultigridpressuresolver_tpu_torch.ops import fused_smoother
+    from geometricmultigridpressuresolver_tpu_torch.solver import mg
+
+    blocks = mg.hierarchy_block_lists(hier, config)
+    narrow = mg.field_dtype(hier, config) == torch.bfloat16
+    nlev = hier.num_levels
+    full = band = 0
+    for level in mg.smoothed_levels(hier):
+        strokes = [(True, nlev == 1)] + ([(False, level == 0)] if nlev > 1 else [])
+        for forward, dot in strokes:
+            plan = fused_smoother.pass_plan(
+                fused_smoother.schedule_for(config, forward),
+                blocks[level].band_cells is not None, dot or narrow,
+            )
+            band += sum(step.band_only for step in plan)
+            full += sum(not step.band_only for step in plan)
+    cycles = iters + 1
+    return {
+        "smoother": 0 if narrow else full * cycles,
+        "smoother_bf16": full * cycles if narrow else 0,
+        "band_pass": band * cycles,
+        "residual": (nlev - 1) * cycles + 1 + int(warm),
+        "cg_step": iters,
+    }
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--n", type=int, default=256, help="scene size (default 256)")
@@ -92,9 +142,9 @@ def main(argv=None) -> int:
     import scipy.sparse.linalg
 
     from geometricmultigridpressuresolver_tpu_torch.config import SolverConfig
-    from geometricmultigridpressuresolver_tpu_torch.models import free_surface, sdf
+    from geometricmultigridpressuresolver_tpu_torch.models import free_surface, sdf, simulate
     from geometricmultigridpressuresolver_tpu_torch.ops import _cuda, fused_cg, fused_smoother
-    from geometricmultigridpressuresolver_tpu_torch.solver import mgpcg
+    from geometricmultigridpressuresolver_tpu_torch.solver import mg, mgpcg
 
     torch.backends.cuda.matmul.allow_tf32 = False  # the coarse matmul in full fp32
     torch.backends.cudnn.allow_tf32 = False
@@ -120,9 +170,19 @@ def main(argv=None) -> int:
         solve_dtype=torch.float32, mg_dtype=torch.float32, mg_ew_dtype=torch.bfloat16,
         tolerance=1e-5, max_iterations=200,
     )
-    counters = (fused_smoother.PASS_LAUNCHES, fused_cg.STEP_LAUNCHES, fused_cg.RESIDUAL_LAUNCHES)
-    for c in counters:
-        c.reset()
+    counters = (
+        fused_smoother.PASS_LAUNCHES, fused_smoother.BAND_LAUNCHES,
+        fused_smoother.NARROW_LAUNCHES, fused_cg.STEP_LAUNCHES, fused_cg.RESIDUAL_LAUNCHES,
+    )
+
+    def reset_counts():
+        for c in counters:
+            c.reset()
+
+    def read_counts():
+        return {c.name: c.count for c in counters}
+
+    reset_counts()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     liquid_phi, velocity = sdf.splash_scene((n, n, n), device=dev, dtype=torch.float32)
@@ -135,7 +195,7 @@ def main(argv=None) -> int:
     result = free_surface.project(setup, velocity, config=config)
     torch.cuda.synchronize()
     t_project = time.perf_counter() - t0
-    launches = {c.name: c.count for c in counters}
+    launches = read_counts()
 
     hier = setup.problem.hier
     nlev = hier.num_levels
@@ -144,6 +204,12 @@ def main(argv=None) -> int:
     print(f"[3] scene {t_scene:.2f} s, setup {t_setup:.2f} s, first project {t_project:.2f} s")
     print(f"[3] expanded {setup.expanded_shape}, levels {[tuple(c.shape) for c in hier.levels]}, "
           f"coarse system {tuple((hier.coarse_minv if hier.coarse_minv.numel() else hier.coarse_chol).shape)}")
+    blocks = mg.hierarchy_block_lists(hier, config)
+    for lv in mg.smoothed_levels(hier):
+        cells = blocks[lv].band_cells
+        nb = 0 if cells is None else cells.numel()
+        print(f"[3] L{lv} {tuple(hier.levels[lv].shape)}: {nb:,} band cells, "
+              f"{nb / hier.levels[lv].diag.numel():.2%} of the level")
     print(f"[3] liquid DOFs {ndof:,}; iterations {iters}; relative residual "
           f"{result.cg.relative_residual:.3e}; recomputed {float(result.residual_rel_l2):.3e} "
           f"(linf {float(result.residual_linf):.3e}); max divergence "
@@ -155,16 +221,10 @@ def main(argv=None) -> int:
             "velocity shapes")
     require(bool(torch.isfinite(result.pressure).all())
             and all(bool(torch.isfinite(v).all()) for v in result.velocity), "non-finite output")
-    passes = len(fused_smoother.schedule_for(config, True))
-    cycles = iters + 1
-    smoothed = max(nlev - 1, 1)
-    expected = {
-        "smoother": passes * cycles * (2 * smoothed if nlev > 1 else 1),
-        "residual": (nlev - 1) * cycles + 1,  # downstroke residuals + the recomputed one
-        "cg_step": iters,
-    }
+    expected = expected_launches(hier, config, iters)
     print(f"[3] kernel launches {launches}, expected {expected}")
     require(launches == expected, "launch counts differ from what the hierarchy implies")
+    require(launches["band_pass"] > 0, "the band-restricted pass never ran on the main path")
 
     # ---- 4. kernels against their plain versions ----------------------------------
     gen = torch.Generator(device=dev).manual_seed(20261016)
@@ -174,43 +234,85 @@ def main(argv=None) -> int:
         return torch.where(c.solvable, v, torch.zeros_like(v))
 
     grid_tol, dot_tol = 1e-5, 1e-4  # fp32: FMA contraction and summation order
-    errs = {"smoother": 0.0, "cg_step": 0.0, "residual": 0.0}  # grids, absolute
-    dot_errs = {"smoother": 0.0, "cg_step": 0.0}  # dots, relative
+    # bf16 fields: both sides compute in fp32 and round once, so they differ
+    # by at most one bf16 ulp at the output's scale (plus the fp32 term).
+    names = ("smoother", "band_pass", "smoother_bf16", "cg_step", "residual")
+    errs = dict.fromkeys(names, 0.0)      # grids, absolute
+    dot_errs = dict.fromkeys(names[:3] + ("cg_step",), 0.0)  # dots, relative
 
-    def check(name, what, got, want, tol):
+    def check(name, what, got, want, tol=None):
+        """tol None: the bf16 bound; else a relative bound."""
         diff, rel = rel_err(got, want)
         if got.dim():
             errs[name] = max(errs[name], diff)
         else:
             dot_errs[name] = max(dot_errs[name], rel)
-        require(rel <= tol, f"{name} {what}: relative error {rel:.3e} > {tol:g}")
+        if tol is None:
+            scale = float(want.double().abs().max())
+            bound = bf16_ulp(scale) + grid_tol * scale
+            require(diff <= bound, f"{name} {what}: error {diff:.3e} > one bf16 ulp {bound:.3e}")
+        else:
+            require(rel <= tol, f"{name} {what}: relative error {rel:.3e} > {tol:g}")
         return rel
 
-    smoothed_levels = hier.levels[:-1] if nlev > 1 else hier.levels
+    config_full = dataclasses.replace(config, pallas_band_strip=0)
+    cases = {
+        "down(zero_x,emit_residual)": dict(forward=True, x_is_zero=True, emit_residual=True),
+        "up": dict(forward=False),
+        "up(emit_dot)": dict(forward=False, emit_dot=True),
+        "down(warm)": dict(forward=True),
+    }
+
+    def as_tuple(v):
+        return v if isinstance(v, tuple) else (v,)
+
+    smoothed = [hier.levels[lv] for lv in mg.smoothed_levels(hier)]
     worst = {}
-    for lv, c_bf16 in enumerate(smoothed_levels):
+    band_vs_full = 0.0
+    for lv, c_bf16 in enumerate(smoothed):
         c_f32 = c_bf16._replace(ew0=c_bf16.ew0.float(), ew1=c_bf16.ew1.float(), ew2=c_bf16.ew2.float())
         for tag, c in (("bf16", c_bf16), ("fp32", c_f32)):
             x, b = rand_field(c), rand_field(c)
-            cases = {
-                "down(zero_x,emit_residual)": dict(x=None, forward=True, x_is_zero=True, emit_residual=True),
-                "up": dict(x=x, forward=False),
-                "up(emit_dot)": dict(x=x, forward=False, emit_dot=True),
-                "down(warm)": dict(x=x, forward=True),
-            }
+            blk = fused_smoother.level_blocks(c, config)
+            blk_bf16 = fused_smoother.level_blocks(c, config, torch.bfloat16)
+            require(blk.band_cells is not None, f"L{lv}: no band cells")
             for case, kw in cases.items():
-                xx = kw.pop("x")
-                got = fused_smoother.smooth_level(xx, b, c, config, **kw)
-                torch.cuda.synchronize()
-                want = fused_smoother.smooth_level_torch(xx, b, c, config, **kw)
-                got = got if isinstance(got, tuple) else (got,)
-                want = want if isinstance(want, tuple) else (want,)
+                xx = None if kw.get("x_is_zero") else x
                 key = f"L{lv} {tag} {case}"
+                # Full-grid boundary passes (pallas_band_strip=0) vs plain.
+                got = as_tuple(fused_smoother.smooth_level(xx, b, c, config_full, **kw))
+                torch.cuda.synchronize()
+                want = as_tuple(fused_smoother.smooth_level_torch(xx, b, c, config_full, **kw))
                 worst[key] = check("smoother", key + " x", got[0], want[0], grid_tol)
                 if kw.get("emit_residual"):
                     check("smoother", key + " r", got[1], want[1], grid_tol)
                 if kw.get("emit_dot"):
                     check("smoother", key + " dot", got[-1], want[-1], dot_tol)
+                # Band-restricted block vs plain, and vs the full-grid kernel.
+                full_kernel = got
+                got = as_tuple(fused_smoother.smooth_level(xx, b, c, config, blocks=blk, **kw))
+                torch.cuda.synchronize()
+                want = as_tuple(fused_smoother.smooth_level_torch(xx, b, c, config, blocks=blk, **kw))
+                for i, (g, w, fk) in enumerate(zip(got, want, full_kernel)):
+                    check("band_pass", f"{key} [{i}] vs plain", g, w, grid_tol if g.dim() else dot_tol)
+                    band_vs_full = max(band_vs_full, rel_err(g, fk)[1])
+                    require(rel_err(g, fk)[1] <= (grid_tol if g.dim() else dot_tol),
+                            f"band-restricted block {key} differs from the full-grid kernel")
+                # bf16 fields vs plain.
+                xb = None if xx is None else xx.to(torch.bfloat16)
+                bb = b.to(torch.bfloat16)
+                got = as_tuple(fused_smoother.smooth_level(xb, bb, c, config, blocks=blk_bf16, **kw))
+                torch.cuda.synchronize()
+                want = as_tuple(fused_smoother.smooth_level_torch(xb, bb, c, config, blocks=blk_bf16, **kw))
+                require(got[0].dtype == torch.bfloat16, "bf16 block output dtype")
+                for i, (g, w) in enumerate(zip(got, want)):
+                    check("smoother_bf16", f"{key} [{i}]", g, w, None if g.dim() else dot_tol)
+            # One band pass alone vs plain (into a copy of x: the target
+            # holds x's values off the band, as the pass plan guarantees).
+            got = fused_smoother.band_pass(x, x.clone(), b, c, blk.band_cells, config.jacobi_damping, mode="cuda")
+            torch.cuda.synchronize()
+            want = fused_smoother.band_pass_torch(x, x.clone(), b, c, blk.band_cells, config.jacobi_damping)
+            check("band_pass", f"L{lv} {tag} single pass", got, want, grid_tol)
             r_got = fused_cg.residual(x, b, c.diag, c.ew0, c.ew1, c.ew2, mode="cuda")
             torch.cuda.synchronize()
             r_want = fused_cg.residual_torch(x, b, c.diag, c.ew0, c.ew1, c.ew2)
@@ -224,19 +326,33 @@ def main(argv=None) -> int:
     check("cg_step", "p'", got[0], want[0], grid_tol)
     check("cg_step", "Ap'", got[1], want[1], grid_tol)
     check("cg_step", "<p', Ap'>", got[2], want[2], dot_tol)
-    print(f"[4] kernel vs plain: all within {grid_tol:g} (grids) / {dot_tol:g} (dots) relative; "
-          f"max abs grid errors {errs}, max relative dot errors {dot_errs}")
-    print(f"[4] worst smoother case: {max(worst, key=worst.get)} at {max(worst.values()):.3e} relative")
+    print(f"[4] kernel vs plain: fp32 within {grid_tol:g} (grids) / {dot_tol:g} (dots) relative, "
+          f"bf16 fields within one bf16 ulp at the output's scale; max abs grid errors {errs}, "
+          f"max relative dot errors {dot_errs}")
+    print(f"[4] band-restricted vs full-grid kernel blocks: max relative difference {band_vs_full:.3e}")
+    print(f"[4] worst full-grid smoother case: {max(worst, key=worst.get)} at {max(worst.values()):.3e} relative")
 
-    # Times at the fine-level shape: the fine upstroke block with the rho dot
-    # (8 passes), one CG step, one residual.
+    # Times at the fine-level shape: fine upstroke blocks with the rho dot
+    # (8 passes), one band pass, one CG step, one residual.
     c0 = hier.levels[0]
     x0f, b0f = rand_field(c0), rand_field(c0)
+    x0h, b0h = x0f.to(torch.bfloat16), b0f.to(torch.bfloat16)
+    blk0 = fused_smoother.level_blocks(c0, config)
+    blk0h = fused_smoother.level_blocks(c0, config, torch.bfloat16)
+    out0 = x0f.clone()
     reps = 20
     times = {
         "smoother": (
-            cuda_ms(lambda: fused_smoother.smooth_level(x0f, b0f, c0, config, False, emit_dot=True), reps),
-            cuda_ms(lambda: fused_smoother.smooth_level_torch(x0f, b0f, c0, config, False, emit_dot=True), reps),
+            cuda_ms(lambda: fused_smoother.smooth_level(x0f, b0f, c0, config_full, False, emit_dot=True), reps),
+            cuda_ms(lambda: fused_smoother.smooth_level_torch(x0f, b0f, c0, config_full, False, emit_dot=True), reps),
+        ),
+        "band_pass": (
+            cuda_ms(lambda: fused_smoother.band_pass(x0f, out0, b0f, c0, blk0.band_cells, config.jacobi_damping, mode="cuda"), reps),
+            cuda_ms(lambda: fused_smoother.band_pass_torch(x0f, out0, b0f, c0, blk0.band_cells, config.jacobi_damping), reps),
+        ),
+        "smoother_bf16": (
+            cuda_ms(lambda: fused_smoother.smooth_level(x0h, b0h, c0, config, False, emit_dot=True, blocks=blk0h), reps),
+            cuda_ms(lambda: fused_smoother.smooth_level_torch(x0h, b0h, c0, config, False, emit_dot=True, blocks=blk0h), reps),
         ),
         "cg_step": (
             cuda_ms(lambda: fused_cg.search_matvec_dot(z, p, beta, fine.diag, fine.ew0, fine.ew1, fine.ew2, mode="cuda"), reps),
@@ -247,8 +363,21 @@ def main(argv=None) -> int:
             cuda_ms(lambda: fused_cg.residual_torch(x0f, b0f, c0.diag, c0.ew0, c0.ew1, c0.ew2), reps),
         ),
     }
+    band_block = (
+        cuda_ms(lambda: fused_smoother.smooth_level(x0f, b0f, c0, config, False, emit_dot=True, blocks=blk0), reps),
+        cuda_ms(lambda: fused_smoother.smooth_level_torch(x0f, b0f, c0, config, False, emit_dot=True, blocks=blk0), reps),
+    )
+    what = {
+        "smoother": "full-grid fine upstroke block + dot",
+        "band_pass": f"one band pass ({blk0.band_cells.numel():,} cells)",
+        "smoother_bf16": "bf16-field fine upstroke block + dot",
+        "cg_step": "CG step", "residual": "residual",
+    }
     for name, (k_ms, p_ms) in times.items():
-        print(f"[4] {name} at {tuple(c0.shape)}: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms [{card}]")
+        print(f"[4] {name} at {tuple(c0.shape)}, {what[name]}: kernel {k_ms:.4f} ms, "
+              f"plain {p_ms:.4f} ms [{card}]")
+    print(f"[4] band-restricted fine upstroke block + dot: kernel {band_block[0]:.4f} ms, "
+          f"plain {band_block[1]:.4f} ms [{card}]")
 
     # ---- 5. solve times, kernels vs plain ---------------------------------------------
     rhs = free_surface.embed_window(
@@ -259,6 +388,7 @@ def main(argv=None) -> int:
         setup.window_start, setup.base_pads, setup.expanded_shape,
     )
     config_t = dataclasses.replace(config, kernel_mode="torch")
+    config_h = dataclasses.replace(config, mg_field_dtype=torch.bfloat16)
 
     def best_solve(cfg):
         best, res = float("inf"), None
@@ -270,11 +400,23 @@ def main(argv=None) -> int:
             best = min(best, time.perf_counter() - t)
         return best, res
 
-    t_k, res_k = best_solve(config)
-    t_t, res_t = best_solve(config_t)
-    print(f"[5] solve best of 3: kernels {t_k:.4f} s ({res_k.iterations} iters, "
-          f"{ndof / t_k:,.0f} DOF/s); plain torch {t_t:.4f} s ({res_t.iterations} iters, "
-          f"{ndof / t_t:,.0f} DOF/s) [{card}]")
+    solves = {}
+    for tag, cfg in (("kernels", config), ("plain torch", config_t),
+                     ("kernels, pallas_band_strip=0", config_full),
+                     ("kernels, mg_field_dtype=bf16", config_h)):
+        solves[tag] = best_solve(cfg)
+    for tag, (t, res) in solves.items():
+        print(f"[5] solve best of 3, {tag}: {t:.4f} s, {res.iterations} iters, rel. residual "
+              f"{res.relative_residual:.3e}, {ndof / t:,.0f} DOF/s [{card}]")
+    res_k, res_0, res_h = (solves[k][1] for k in (
+        "kernels", "kernels, pallas_band_strip=0", "kernels, mg_field_dtype=bf16"))
+    _, band_rel = rel_err(res_k.x, res_0.x)
+    print(f"[5] band-restricted vs full-grid passes: iterations {res_k.iterations} vs "
+          f"{res_0.iterations}, pressure max relative difference {band_rel:.3e}")
+    require(res_k.iterations == res_0.iterations, "band-strip and full-grid iteration counts differ")
+    require(band_rel <= 1e-4, "band-strip and full-grid pressures differ by more than 1e-4")
+    print(f"[5] bf16 fields: {res_h.iterations} iterations vs {res_k.iterations} with fp32 fields")
+    require(res_h.converged and res_h.relative_residual <= 1e-5, "bf16-field solve did not converge")
     plain = free_surface.project(setup, velocity, config=config_t)
     _, p_rel = rel_err(result.pressure, plain.pressure)
     print(f"[5] kernel vs plain projection: iterations {iters} vs {plain.cg.iterations}, "
@@ -282,6 +424,18 @@ def main(argv=None) -> int:
     require(abs(iters - plain.cg.iterations) <= 1, "iteration counts differ by more than 1")
     require(p_rel <= 1e-3, "kernel and plain pressures differ by more than 1e-3")
     require(res_k.iterations == iters, "re-solve iteration count changed")
+    # The bf16-field path through the projection, counted like phase 3.
+    reset_counts()
+    result_h = free_surface.project(setup, velocity, config=config_h)
+    torch.cuda.synchronize()
+    launches_h = read_counts()
+    expected_h = expected_launches(hier, config_h, result_h.cg.iterations)
+    print(f"[5] bf16-field projection: {result_h.cg.iterations} iterations, kernel launches "
+          f"{launches_h}, expected {expected_h}")
+    require(launches_h == expected_h, "bf16-field launch counts differ from the plan")
+    require(launches_h["smoother_bf16"] > 0, "the bf16-field smoother never ran")
+    require(result_h.cg.converged and bool(torch.isfinite(result_h.pressure).all()),
+            "bf16-field projection failed")
 
     # ---- 6. small fp64 projection vs a direct solve of the assembled system -----------
     m = 24
@@ -318,18 +472,67 @@ def main(argv=None) -> int:
           f"max relative difference {oracle:.3e}")
     require(res_s.cg.converged and oracle <= 1e-9, "fp64 projection disagrees with the direct solve")
 
+    # ---- 7. the frame loop --------------------------------------------------------------
+    frames_n = 4
+    sim_cfg = config  # the CLI's --fp32 configuration (gmg-torch-simulate --fp32)
+    phi0, vel0 = sdf.splash_scene((n, n, n), device=dev, dtype=torch.float32)
+    per_frame = []
+
+    def on_frame(k, fr):
+        per_frame.append(expected_launches(fr.setup.problem.hier, sim_cfg, fr.iterations, warm=k > 0))
+        print(f"[7] frame {k + 1}: {fr.iterations} iters, rel. residual {fr.relative_residual:.3e}, "
+              f"max divergence {fr.max_divergence:.3e}, advect {fr.seconds['advect']:.3f} s, "
+              f"setup {fr.seconds['setup']:.3f} s, project {fr.seconds['project']:.3f} s, "
+              f"window {fr.setup.expanded_shape} {'kept' if fr.window_reused else 'new'} [{card}]")
+
+    reset_counts()
+    t0 = time.perf_counter()
+    frames = simulate.run(phi0, vel0, weights, num_frames=frames_n, config=sim_cfg, on_frame=on_frame)
+    torch.cuda.synchronize()
+    t_loop = time.perf_counter() - t0
+    launches_loop = read_counts()
+    expected_loop = {k: sum(e[k] for e in per_frame) for k in per_frame[0]}
+    print(f"[7] {frames_n} frames in {t_loop:.3f} s ({t_loop / frames_n:.3f} s per frame); "
+          f"kernel launches {launches_loop}, expected {expected_loop}")
+    require(launches_loop == expected_loop, "frame-loop launch counts differ from the plan")
+    for key in ("smoother", "band_pass", "cg_step", "residual"):
+        require(launches_loop[key] > 0, f"the frame loop never launched {key}")
+    for k, fr in enumerate(frames):
+        require(fr.relative_residual <= sim_cfg.tolerance and fr.iterations < sim_cfg.max_iterations,
+                f"frame {k + 1} did not converge")
+        require(all(bool(torch.isfinite(t).all()) for t in (fr.liquid_phi, fr.pressure, *fr.velocity)),
+                f"frame {k + 1}: non-finite field")
+    t0 = time.perf_counter()
+    plain_frames = simulate.run(phi0, vel0, weights, num_frames=2,
+                                config=dataclasses.replace(sim_cfg, kernel_mode="torch"))
+    torch.cuda.synchronize()
+    t_plain = time.perf_counter() - t0
+    for k, pf in enumerate(plain_frames):
+        _, rel = rel_err(frames[k].pressure, pf.pressure)
+        print(f"[7] frame {k + 1} kernels vs kernel_mode='torch': iterations {frames[k].iterations} "
+              f"vs {pf.iterations}, pressure max relative difference {rel:.3e}")
+        require(rel <= 1e-3, f"frame {k + 1}: kernel and plain pressures differ by more than 1e-3")
+    print(f"[7] plain frames 1-2 in {t_plain:.3f} s [{card}]")
+
     src = "geometricmultigridpressuresolver_tpu_torch/csrc/"
+    jax_src = "geometricmultigridpressuresolver_tpu/"
     kernels = [
         {"name": "smoother", "route": "cuda", "source": src + "smoother.cu",
-         "replaces": "geometricmultigridpressuresolver_tpu/ops/pallas_smoother.py:619"},
+         "replaces": jax_src + "ops/pallas_smoother.py:619"},
+        {"name": "band_pass", "route": "cuda", "source": src + "smoother.cu",
+         "replaces": jax_src + "ops/pallas_smoother.py:513"},
+        {"name": "smoother_bf16", "route": "cuda", "source": src + "smoother.cu",
+         "replaces": jax_src + "ops/pallas_smoother.py:466"},
         {"name": "cg_step", "route": "cuda", "source": src + "cg.cu",
-         "replaces": "geometricmultigridpressuresolver_tpu/ops/pallas_cg.py:329"},
+         "replaces": jax_src + "ops/pallas_cg.py:329"},
         {"name": "residual", "route": "cuda", "source": src + "cg.cu",
-         "replaces": "geometricmultigridpressuresolver_tpu/ops/pallas_cg.py:253"},
+         "replaces": jax_src + "ops/pallas_cg.py:253"},
     ]
     for k in kernels:
         name = k["name"]
-        k.update(launches=launches[name], max_abs_err=errs[name],
+        # The bf16-field smoother runs on the bf16-field projection's path.
+        k.update(launches=(launches_h if name == "smoother_bf16" else launches)[name],
+                 launches_frame_loop=launches_loop[name], max_abs_err=errs[name],
                  ms=times[name][0], plain_ms=times[name][1])
         if name in dot_errs:
             k["dot_max_rel_err"] = dot_errs[name]

@@ -3,9 +3,9 @@
 The knobs of ``geometricmultigridpressuresolver_tpu.config.SolverConfig``
 that mean something on the port's path, with the same names and defaults,
 plus `kernel_mode`.  Knobs that exist only for the TPU (Pallas interpret
-mode and tiling, padded kernel views, band strips, MXU transfers, setup
-program granularity, bf16 field storage) are absent on purpose: passing
-one raises ``TypeError``.
+mode and tiling, padded kernel views, MXU transfers, setup program
+granularity, the Chebyshev smoother) are absent on purpose: passing one
+raises ``TypeError``.
 
 One default differs: `solve_dtype` is float64, the reference's all-double
 solve.  The JAX package resolves its default from ``jax_enable_x64``; torch
@@ -20,7 +20,9 @@ import torch
 
 _FLOATS = (torch.float32, torch.float64)
 _EW_DTYPES = (None, torch.bfloat16, torch.float32, torch.float64)
+_FIELD_DTYPES = (None, torch.bfloat16)
 KERNEL_MODES = ("auto", "torch", "cuda")
+ADVECTION_SCHEMES = ("semi_lagrangian", "upwind")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -60,6 +62,25 @@ class SolverConfig:
         against); "cuda" launches the kernels and raises on CPU tensors.
       record_residuals: record the relative residual of every CG iteration
         into CGResult.residual_history.
+      pallas_band_strip: 0 runs every boundary ('b') pass of the smoother
+        over the whole grid; any value > 0 restricts the passes that can be
+        restricted to a compacted list of the level's band cells, at every
+        level and every nz.  The JAX package's name and default (128) are
+        kept; on the TPU the value is a lane-strip width, on the card it
+        has no width meaning.  The numbers are the same as the full pass
+        (off the band a 'b' pass is the exact identity).
+      mg_field_dtype: storage dtype of the V-cycle's x / rhs / residual
+        fields on the smoothed levels (None keeps the mg dtype).  bfloat16
+        stores x, b and inv_diag narrow while each smoothing block computes
+        in float32 and narrows once at its end.  Applies to a float32 V-cycle
+        whose downstroke can emit its residual (`residual_fusable`); other
+        configurations keep the mg dtype, as in the JAX package.
+      window_slack: extra window headroom, in units of the exterior
+        padding, added when a frame's liquid outgrows the previous frame's
+        window (`build_setup(reuse_from=...)`).
+      advection: "semi_lagrangian" (trilinear backtrace) or "upwind"
+        (first-order stencil) for the frame loop (`models/simulate.py`).
+      advect_substeps: sub-Euler steps of the upwind scheme.
     """
 
     solve_dtype: torch.dtype = torch.float64
@@ -81,6 +102,11 @@ class SolverConfig:
     coarse_dof_target: int = 3000
     kernel_mode: str = "auto"
     record_residuals: bool = False
+    pallas_band_strip: int = 128
+    mg_field_dtype: torch.dtype | None = None
+    window_slack: int = 1
+    advection: str = "semi_lagrangian"
+    advect_substeps: int = 4
 
     def __post_init__(self):
         if self.kernel_mode not in KERNEL_MODES:
@@ -93,6 +119,17 @@ class SolverConfig:
             raise ValueError(f"config.mg_dtype={self.mg_dtype}; expected None or {_FLOATS}")
         if self.mg_ew_dtype not in _EW_DTYPES:
             raise ValueError(f"config.mg_ew_dtype={self.mg_ew_dtype}; expected {_EW_DTYPES}")
+        if self.mg_field_dtype not in _FIELD_DTYPES:
+            raise ValueError(
+                f"config.mg_field_dtype={self.mg_field_dtype}; expected {_FIELD_DTYPES}"
+            )
+        strip = self.pallas_band_strip
+        if isinstance(strip, bool) or not isinstance(strip, int) or strip < 0:
+            raise ValueError(f"config.pallas_band_strip={strip!r}; expected an int >= 0")
+        if self.advection not in ADVECTION_SCHEMES:
+            raise ValueError(
+                f"config.advection={self.advection!r}; expected one of {ADVECTION_SCHEMES}"
+            )
 
     @property
     def mg_dtype_resolved(self) -> torch.dtype:

@@ -16,8 +16,13 @@
 // Kernel 3 replaces ops/pallas_cg.py::fused_residual (kernel body
 // _make_residual_kernel):  r = b - (diag*x - S(x)).  It is also the
 // smoother's emit_residual epilogue (the port's smoother is one launch per
-// pass).  Bound: device memory, about 3*4 + 3*2 + 4 = 22 B/cell with bf16
-// edge weights.
+// pass).  x and diag are in the compute type T; b and r in the storage type
+// S: T itself, or bfloat16 over float when the V-cycle stores its fields
+// narrow -- then x is the smoother's unrounded float x and only r narrows,
+// as the Pallas kernel forms the residual before it narrows x
+// (ops/pallas_smoother.py:582-590).  Bound: device memory, about
+// 3*4 + 3*2 + 4 = 22 B/cell with bf16 edge weights (4 B less with bf16
+// fields).
 #include "common.cuh"
 
 namespace gmg {
@@ -48,19 +53,19 @@ cg_step_kernel(const T* __restrict__ z, const T* __restrict__ p,
   if (threadIdx.x == 0) partials[blockIdx.x] = total;
 }
 
-template <typename T, typename E>
+template <typename T, typename S, typename E>
 __global__ void __launch_bounds__(kBlock)
-residual_kernel(const T* __restrict__ x, const T* __restrict__ b,
+residual_kernel(const T* __restrict__ x, const S* __restrict__ b,
                 const T* __restrict__ diag, const E* __restrict__ e0,
                 const E* __restrict__ e1, const E* __restrict__ e2,
-                T* __restrict__ r, int nx, int ny, int nz) {
+                S* __restrict__ r, int nx, int ny, int nz) {
   const long long n = (long long)nx * ny * nz;
   const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (idx >= n) return;
   const Cell c = cell_of(idx, ny, nz);
   auto val = [x](long long q) { return x[q]; };
   const T s = neighbor_sum<T, E>(val, e0, e1, e2, idx, c, nx, ny, nz);
-  r[idx] = b[idx] - (diag[idx] * x[idx] - s);
+  store_as(r, idx, load_as<T>(b, idx) - (diag[idx] * x[idx] - s));
 }
 
 template <typename T>
@@ -90,18 +95,18 @@ cudaError_t launch_cg_step(const void* z, const void* p, const void* beta,
   return cudaGetLastError();
 }
 
-template <typename T, typename E>
+template <typename T, typename S, typename E>
 cudaError_t launch_residual(const void* x, const void* b, const void* diag,
                             const void* e0, const void* e1, const void* e2,
                             void* r, int nx, int ny, int nz,
                             cudaStream_t stream) {
   const long long n = (long long)nx * ny * nz;
   if (n == 0) return cudaSuccess;
-  residual_kernel<T, E><<<num_blocks(n), kBlock, 0, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(b),
+  residual_kernel<T, S, E><<<num_blocks(n), kBlock, 0, stream>>>(
+      static_cast<const T*>(x), static_cast<const S*>(b),
       static_cast<const T*>(diag), static_cast<const E*>(e0),
       static_cast<const E*>(e1), static_cast<const E*>(e2),
-      static_cast<T*>(r), nx, ny, nz);
+      static_cast<S*>(r), nx, ny, nz);
   return cudaGetLastError();
 }
 
@@ -131,16 +136,26 @@ extern "C" int gmg_cg_step(int fdt, int edt, const void* z, const void* p,
 #undef GMG_STEP
 }
 
-extern "C" int gmg_residual(int fdt, int edt, const void* x, const void* b,
-                            const void* diag, const void* e0, const void* e1,
-                            const void* e2, void* r, int nx, int ny, int nz,
-                            void* stream) {
+// fdt: type of x and diag; sdt: type of b and r (fdt, or bf16 over f32).
+extern "C" int gmg_residual(int fdt, int sdt, int edt, const void* x,
+                            const void* b, const void* diag, const void* e0,
+                            const void* e1, const void* e2, void* r, int nx,
+                            int ny, int nz, void* stream) {
   using namespace gmg;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define GMG_RES(T, E) \
-  launch_residual<T, E>(x, b, diag, e0, e1, e2, r, nx, ny, nz, s)
-  GMG_DISPATCH(GMG_RES)
+  launch_residual<T, T, E>(x, b, diag, e0, e1, e2, r, nx, ny, nz, s)
+  if (sdt == fdt) {
+    GMG_DISPATCH(GMG_RES)
+  }
 #undef GMG_RES
+  if (fdt == kF32 && sdt == kBF16) {
+    if (edt == kF32)
+      return launch_residual<float, __nv_bfloat16, float>(x, b, diag, e0, e1, e2, r, nx, ny, nz, s);
+    if (edt == kBF16)
+      return launch_residual<float, __nv_bfloat16, __nv_bfloat16>(x, b, diag, e0, e1, e2, r, nx, ny, nz, s);
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 // Sum `count` per-block partials into the 0-d `out` in a fixed order

@@ -27,13 +27,22 @@ constexpr int kSumBlock = 1024;
 // Field dtype codes shared with the Python wrappers.
 enum DType : int { kF32 = 0, kF64 = 1, kBF16 = 2 };
 
+// Load element q of a float, double or bfloat16 array as compute type T.
 template <typename T>
-__device__ __forceinline__ T load_w(const float* p, long long q) { return T(p[q]); }
+__device__ __forceinline__ T load_as(const float* p, long long q) { return T(p[q]); }
 template <typename T>
-__device__ __forceinline__ T load_w(const double* p, long long q) { return T(p[q]); }
+__device__ __forceinline__ T load_as(const double* p, long long q) { return T(p[q]); }
 template <typename T>
-__device__ __forceinline__ T load_w(const __nv_bfloat16* p, long long q) {
+__device__ __forceinline__ T load_as(const __nv_bfloat16* p, long long q) {
   return T(__bfloat162float(p[q]));
+}
+
+// Store a computed value into a field of the storage type; bfloat16 rounds
+// to nearest even, as torch's float -> bfloat16 conversion does.
+__device__ __forceinline__ void store_as(float* p, long long q, float v) { p[q] = v; }
+__device__ __forceinline__ void store_as(double* p, long long q, double v) { p[q] = v; }
+__device__ __forceinline__ void store_as(__nv_bfloat16* p, long long q, float v) {
+  p[q] = __float2bfloat16_rn(v);
 }
 
 // Cell coordinates of a linear index.
@@ -60,12 +69,12 @@ __device__ __forceinline__ T neighbor_sum(F val, const E* e0, const E* e1,
   const long long sx = (long long)ny * nz;
   const long long sy = nz;
   T s = T(0);
-  if (c.i + 1 < nx) s += load_w<T>(e0, idx) * val(idx + sx);
-  if (c.i > 0) s += load_w<T>(e0, idx - sx) * val(idx - sx);
-  if (c.j + 1 < ny) s += load_w<T>(e1, idx) * val(idx + sy);
-  if (c.j > 0) s += load_w<T>(e1, idx - sy) * val(idx - sy);
-  if (c.k + 1 < nz) s += load_w<T>(e2, idx) * val(idx + 1);
-  if (c.k > 0) s += load_w<T>(e2, idx - 1) * val(idx - 1);
+  if (c.i + 1 < nx) s += load_as<T>(e0, idx) * val(idx + sx);
+  if (c.i > 0) s += load_as<T>(e0, idx - sx) * val(idx - sx);
+  if (c.j + 1 < ny) s += load_as<T>(e1, idx) * val(idx + sy);
+  if (c.j > 0) s += load_as<T>(e1, idx - sy) * val(idx - sy);
+  if (c.k + 1 < nz) s += load_as<T>(e2, idx) * val(idx + 1);
+  if (c.k > 0) s += load_as<T>(e2, idx - 1) * val(idx - 1);
   return s;
 }
 

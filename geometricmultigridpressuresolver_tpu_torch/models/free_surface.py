@@ -13,7 +13,8 @@ projected velocity out.
      faces; 9. post-projection divergence audit.
 
 `build_setup` runs steps 1-4 on `device`; `project` runs steps 5-9 on the
-device that holds the setup.
+device that holds the setup.  In a frame loop, `build_setup(reuse_from=
+previous_setup)` keeps the window shape sticky while the liquid fits.
 """
 
 from __future__ import annotations
@@ -239,10 +240,18 @@ def build_setup(
     validate: bool = False,
     density=None,
     device=None,
+    reuse_from: ProjectionSetup | None = None,
 ) -> ProjectionSetup:
     """Steps 1-4 on `device` (default: liquid_phi's device, CPU for numpy):
     labels, valid faces, MG domain and weights, the compact window and the
-    hierarchy."""
+    hierarchy.
+
+    `reuse_from` (the previous frame's setup) keeps its window shape when
+    the new liquid still fits it with the same padding and depth, so every
+    frame of a loop works on one shape; when it no longer fits, the new
+    window gets `config.window_slack` padding quanta of headroom on the
+    first two axes.  Without it the window is the exact minimal one.
+    """
     if config is None:
         config = SolverConfig()
     validate_density(density)
@@ -275,6 +284,26 @@ def build_setup(
         mg_levels, padding, expanded_shape = domain_ops.expansion_params(base_shape)
         bbox = tuple((0, n) for n in base_shape)
         window_labels = mg_labels
+
+    # Sticky window shape (free_surface.py:605-635 of the JAX package): the
+    # fit test uses the minimal requirement; a regrown window adds
+    # `window_slack` padding quanta on the first two axes (the last axis
+    # already has headroom from its 128-multiple rounding).
+    if (
+        reuse_from is not None
+        and reuse_from.padding == padding
+        and reuse_from.mg_levels == mg_levels
+        and all(pe >= ne for pe, ne in zip(reuse_from.expanded_shape, expanded_shape))
+    ):
+        expanded_shape = reuse_from.expanded_shape
+    elif reuse_from is not None and config.window_slack:
+        expanded_shape = (
+            expanded_shape[0] + config.window_slack * padding,
+            expanded_shape[1] + config.window_slack * padding,
+            expanded_shape[2],
+        )
+        if config.compact_domain:
+            expanded_shape = domain_ops.align_tile_extents(expanded_shape, padding)
 
     # Base padding of at least `padding`, enough that the window fits; the
     # window keeps a leading exterior margin of at least `padding`.

@@ -46,10 +46,13 @@ _I = ctypes.c_int
 _SIGNATURES = {
     "gmg_block_size": ([], _I),
     "gmg_smooth_pass": (
-        [_I, _I, _I, _I, ctypes.c_double] + [_P] * 8 + [_I, _I, _I, _P, _P], _I
+        [_I] * 6 + [ctypes.c_double] + [_P] * 9 + [_I, _I, _I, _P, _P], _I
+    ),
+    "gmg_band_pass": (
+        [_I, _I, _I, ctypes.c_double] + [_P] * 8 + [ctypes.c_longlong, _I, _I, _I, _P], _I
     ),
     "gmg_cg_step": ([_I, _I] + [_P] * 10 + [_I, _I, _I, _P], _I),
-    "gmg_residual": ([_I, _I] + [_P] * 7 + [_I, _I, _I, _P], _I),
+    "gmg_residual": ([_I, _I, _I] + [_P] * 7 + [_I, _I, _I, _P], _I),
     "gmg_sum_partials": ([_I, _P, ctypes.c_longlong, _P, _P], _I),
 }
 
@@ -180,6 +183,14 @@ def check_dtypes(what: str, field: torch.Tensor, *others: torch.Tensor, ews=()) 
             raise TypeError(f"{what}: mixed field dtypes {field.dtype} and {t.dtype}")
     if ews and any(e.dtype != ews[0].dtype for e in ews):
         raise TypeError(f"{what}: the three edge-weight grids must share a dtype")
+
+
+def check_storage(what: str, compute_dtype: torch.dtype, *stored: torch.Tensor) -> None:
+    """Raise unless each stored field has the compute dtype, or is bfloat16
+    over float32 compute (the V-cycle's narrow field storage)."""
+    for t in stored:
+        if t.dtype != compute_dtype and (t.dtype, compute_dtype) != (torch.bfloat16, torch.float32):
+            raise TypeError(f"{what}: mixed field dtypes {compute_dtype} and {t.dtype}")
 
 
 @dataclasses.dataclass

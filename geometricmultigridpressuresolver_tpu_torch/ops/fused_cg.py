@@ -90,24 +90,32 @@ def search_matvec_dot(z, p, beta, diag, ew0, ew1, ew2, mode: str = "auto"):
 
 
 def residual_torch(x, b, diag, ew0, ew1, ew2):
-    """Plain version: r = b - (diag*x - S(x))."""
-    return b - (diag * x - neighbor_sum_ew(x, ew0, ew1, ew2))
+    """Plain version: r = b - (diag*x - S(x)), computed in x's dtype and
+    stored in b's."""
+    return (b - (diag * x - neighbor_sum_ew(x, ew0, ew1, ew2))).to(b.dtype)
 
 
 def residual(x, b, diag, ew0, ew1, ew2, mode: str = "auto"):
     """r = b - A x.  Zero on non-solvable cells when x and b are (zero diag
-    and edge weights there)."""
+    and edge weights there).
+
+    x and diag share the compute dtype; b and the result share the storage
+    dtype, which is the compute dtype or, for a float32 x, bfloat16 (the
+    narrow V-cycle fields: r is formed from the unrounded x, then narrowed).
+    """
     if not _cuda.use_kernel(mode, x):
         return residual_torch(x, b, diag, ew0, ew1, ew2)
     what = "residual"
     _cuda.check_cuda_operands(what, x.shape, x=x, b=b, diag=diag, ew0=ew0, ew1=ew1, ew2=ew2)
-    _cuda.check_dtypes(what, x, b, diag, ews=(ew0, ew1, ew2))
-    r = torch.empty_like(x)
+    _cuda.check_dtypes(what, x, diag, ews=(ew0, ew1, ew2))
+    _cuda.check_storage(what, x.dtype, b)
+    r = torch.empty_like(b)
     nx, ny, nz = x.shape
     lib = _cuda.library()
     _cuda.check(
         lib.gmg_residual(
-            _cuda.dtype_code(x, what), _cuda.dtype_code(ew0, what),
+            _cuda.dtype_code(x, what), _cuda.dtype_code(b, what),
+            _cuda.dtype_code(ew0, what),
             _cuda.ptr(x), _cuda.ptr(b), _cuda.ptr(diag),
             _cuda.ptr(ew0), _cuda.ptr(ew1), _cuda.ptr(ew2), _cuda.ptr(r),
             nx, ny, nz, _cuda.stream_of(x),

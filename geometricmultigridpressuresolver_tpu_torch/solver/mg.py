@@ -9,9 +9,12 @@
     `ops.fused_smoother.smooth_level` (the CUDA kernel on CUDA tensors),
     adjoint GS ordering on the upstroke, 4x trilinear prolongation, and a
     smoothing-only cycle when the hierarchy has one level.
+  * hierarchy_block_lists: each smoothed level's solve-invariant smoother
+    data (band-cell list, narrowed coefficients), built once per solve.
 
 Every smoothed level runs the smoother kernel on the card: the kernel takes
-any shape, so there is no per-level eligibility gate.
+any shape, so there is no per-level eligibility gate -- and with
+`config.mg_field_dtype` every smoothed level stores its fields narrow.
 """
 
 from __future__ import annotations
@@ -218,6 +221,38 @@ def coarse_solve(hier: MGHierarchy, b: torch.Tensor) -> torch.Tensor:
     return flat[:ncell].reshape(b.shape)
 
 
+def smoothed_levels(hier: MGHierarchy) -> range:
+    """Levels that run a smoothing block: all but the coarsest (solved
+    directly), or the only level of a one-level hierarchy."""
+    return range(max(hier.num_levels - 1, 1))
+
+
+def field_dtype(hier: MGHierarchy, config: SolverConfig) -> torch.dtype:
+    """Storage dtype of the smoothed levels' fields (mg.py:794-812 of the
+    JAX package): `config.mg_field_dtype` on a float32 V-cycle whose
+    downstroke can fuse its residual, else the hierarchy's dtype."""
+    dtype = hier.levels[0].diag.dtype
+    if (
+        config.mg_field_dtype is not None
+        and dtype == torch.float32
+        and fused_smoother.residual_fusable(config, forward=True)
+    ):
+        return config.mg_field_dtype
+    return dtype
+
+
+def hierarchy_block_lists(hier: MGHierarchy, config: SolverConfig):
+    """Per-level solve-invariant smoother data (`ops.fused_smoother.LevelBlocks`)
+    of the smoothed levels, None for the coarsest.  A CG loop builds this
+    once and passes it to every `v_cycle`."""
+    fdt = field_dtype(hier, config)
+    smoothed = smoothed_levels(hier)
+    return tuple(
+        fused_smoother.level_blocks(c, config, fdt) if level in smoothed else None
+        for level, c in enumerate(hier.levels)
+    )
+
+
 def v_cycle(
     hier: MGHierarchy,
     x,
@@ -225,27 +260,44 @@ def v_cycle(
     config: SolverConfig | None = None,
     use_initial_guess: bool = False,
     emit_fine_dot: bool = False,
+    block_lists=None,
 ):
     """One V(1,1) multigrid cycle; returns the updated solution grid, or
     (x, <x, b>) with `emit_fine_dot` (the CG rho when b is the CG residual).
 
     Without `use_initial_guess` the cycle starts from x = 0 and `x` may be
-    None.
+    None.  The smoothed levels store their fields as `field_dtype` (the
+    transfers run in torch on those fields); the coarse solve runs in the
+    hierarchy's dtype, and so does the returned x.
     """
     if config is None:
         config = SolverConfig()
     dtype = hier.levels[0].diag.dtype
-    b = b.to(dtype)
-    if use_initial_guess:
-        x = x.to(dtype)
+    fdt = field_dtype(hier, config)
     nlev = hier.num_levels
+    smoothed = smoothed_levels(hier)
+
+    def vdt(level):
+        return fdt if level in smoothed else dtype
+
+    b = b.to(fdt)
+    if use_initial_guess:
+        x = x.to(fdt)
+    if block_lists is None:
+        block_lists = hierarchy_block_lists(hier, config)
+
+    def finish(out):
+        # The caller gets the hierarchy dtype whatever the field storage.
+        if emit_fine_dot:
+            return out[0].to(dtype), out[1]
+        return out.to(dtype)
 
     if nlev == 1:
         # Single-level cycle is smoothing-only.
-        return fused_smoother.smooth_level(
+        return finish(fused_smoother.smooth_level(
             x, b, hier.levels[0], config, forward=True, emit_dot=emit_fine_dot,
-            x_is_zero=not use_initial_guess,
-        )
+            x_is_zero=not use_initial_guess, blocks=block_lists[0],
+        ))
 
     # Downstroke.  Every level but a warm-started finest one enters with
     # x == 0: the smoother then skips reading x and emits the residual.
@@ -256,24 +308,28 @@ def v_cycle(
         if level > 0 or not use_initial_guess:
             xl, r = fused_smoother.smooth_level(
                 None, rhs[level], c, config, forward=True, x_is_zero=True,
-                emit_residual=True,
+                emit_residual=True, blocks=block_lists[level],
             )
         else:
-            xl = fused_smoother.smooth_level(x, rhs[level], c, config, forward=True)
+            xl = fused_smoother.smooth_level(
+                x, rhs[level], c, config, forward=True, blocks=block_lists[level]
+            )
+            # In the hierarchy's dtype, as the JAX package forms it here.
             r = fused_cg.residual(
-                xl, rhs[level], c.diag, c.ew0, c.ew1, c.ew2, mode=config.kernel_mode
+                xl.to(dtype), rhs[level].to(dtype), c.diag, c.ew0, c.ew1, c.ew2,
+                mode=config.kernel_mode,
             )
         sols[level] = xl
-        rhs[level + 1] = transfer.restrict(r, hier.levels[level + 1].solvable)
+        rhs[level + 1] = transfer.restrict(r, hier.levels[level + 1].solvable).to(vdt(level + 1))
 
     sols[nlev - 1] = coarse_solve(hier, rhs[nlev - 1])
 
     # Upstroke with adjoint smoother ordering.
     for level in range(nlev - 2, -1, -1):
         c = hier.levels[level]
-        xl = transfer.prolong_add(sols[level], sols[level + 1], c.solvable)
+        xl = transfer.prolong_add(sols[level], sols[level + 1].to(vdt(level)), c.solvable)
         sols[level] = fused_smoother.smooth_level(
             xl, rhs[level], c, config, forward=False,
-            emit_dot=emit_fine_dot and level == 0,
+            emit_dot=emit_fine_dot and level == 0, blocks=block_lists[level],
         )
-    return sols[0]
+    return finish(sols[0])

@@ -114,12 +114,18 @@ def solve(
 
     preconditioner_dot = None
     if config.use_mg_preconditioner:
+        # Band-cell lists and narrowed coefficients: once per solve.
+        blocks = mg_mod.hierarchy_block_lists(problem.hier, config)
+
         def preconditioner(r):
-            return mg_mod.v_cycle(problem.hier, None, r.to(mg_dtype), config).to(sd)
+            return mg_mod.v_cycle(
+                problem.hier, None, r.to(mg_dtype), config, block_lists=blocks
+            ).to(sd)
 
         def preconditioner_dot(r):
             z, rho = mg_mod.v_cycle(
-                problem.hier, None, r.to(mg_dtype), config, emit_fine_dot=True
+                problem.hier, None, r.to(mg_dtype), config, emit_fine_dot=True,
+                block_lists=blocks,
             )
             return z.to(sd), rho
     else:

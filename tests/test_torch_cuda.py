@@ -10,15 +10,19 @@ without JAX cannot import; this file needs only the port.)
 
 Tolerances: fp32 kernels differ from the plain versions by FMA contraction
 and summation order -- 1e-5 relative (to the field's max) on grids, 1e-4 on
-dots; fp64 kernels 1e-12.
+dots; fp64 kernels 1e-12.  bf16-field blocks compute in fp32 and round
+once, so kernel and plain differ by at most one bf16 ulp at the output's
+scale (plus the fp32 term).
 """
+
+import math
 
 import numpy as np
 import pytest
 import torch
 
 from geometricmultigridpressuresolver_tpu_torch.config import SolverConfig
-from geometricmultigridpressuresolver_tpu_torch.models import free_surface, sdf
+from geometricmultigridpressuresolver_tpu_torch.models import free_surface, sdf, simulate
 from geometricmultigridpressuresolver_tpu_torch.grids import face_shape
 from geometricmultigridpressuresolver_tpu_torch.ops import domain, fused_cg, fused_smoother
 from geometricmultigridpressuresolver_tpu_torch.solver import mg
@@ -89,12 +93,14 @@ def test_smoother_kernel_matches_plain(device, dtype, ew_dtype, grid_tol, dot_to
     if variant == "jacobi":
         cfg = SolverConfig(solve_dtype=dtype, mg_ew_dtype=ew_dtype, use_gauss_seidel=False)
     xin = None if kw.get("x_is_zero") else x
-    before = fused_smoother.PASS_LAUNCHES.count
+    before = fused_smoother.PASS_LAUNCHES.count, fused_smoother.BAND_LAUNCHES.count
     got = fused_smoother.smooth_level(xin, b, c, cfg, **kw)
     torch.cuda.synchronize()
-    assert fused_smoother.PASS_LAUNCHES.count - before == len(
-        fused_smoother.schedule_for(cfg, kw["forward"])
+    plan = fused_smoother.pass_plan(
+        fused_smoother.schedule_for(cfg, kw["forward"]), True, kw.get("emit_dot", False)
     )
+    assert fused_smoother.BAND_LAUNCHES.count - before[1] == sum(s.band_only for s in plan) > 0
+    assert fused_smoother.PASS_LAUNCHES.count - before[0] == sum(not s.band_only for s in plan)
     want = fused_smoother.smooth_level_torch(xin, b, c, cfg, **kw)
     got = got if isinstance(got, tuple) else (got,)
     want = want if isinstance(want, tuple) else (want,)
@@ -144,3 +150,101 @@ def test_projection_kernels_match_plain_fp64(device):
     assert got.cg.iterations == want.cg.iterations
     assert _rel(got.pressure, want.pressure) <= 1e-10
     np.testing.assert_array_less(float(got.max_divergence), 1e-6)
+
+
+def _bf16_bound(want) -> float:
+    scale = float(want.double().abs().max())
+    return 2.0 ** (math.floor(math.log2(scale)) - 7) + 1e-5 * scale
+
+
+@pytest.mark.parametrize("dtype, ew_dtype, grid_tol, dot_tol", CASES)
+def test_band_pass_kernel_matches_plain(device, dtype, ew_dtype, grid_tol, dot_tol):
+    c, x, b, cfg = _level(device, dtype, ew_dtype)
+    cells = fused_smoother.band_cells(c.band)
+    sentinel = torch.full_like(x, 7.0)
+    before = fused_smoother.BAND_LAUNCHES.count
+    got = fused_smoother.band_pass(x, sentinel.clone(), b, c, cells, cfg.jacobi_damping, mode="cuda")
+    torch.cuda.synchronize()
+    assert fused_smoother.BAND_LAUNCHES.count - before == 1
+    want = fused_smoother.band_pass_torch(x, sentinel.clone(), b, c, cells, cfg.jacobi_damping)
+    assert _rel(got, want) <= grid_tol
+    assert (got[~c.band.bool()] == 7.0).all()
+
+
+@pytest.mark.parametrize("dtype, ew_dtype, grid_tol, dot_tol", CASES)
+@pytest.mark.parametrize("variant", ["down", "up_dot", "warm"])
+def test_band_restricted_block_matches_full_kernel(device, dtype, ew_dtype, grid_tol, dot_tol, variant):
+    c, x, b, cfg = _level(device, dtype, ew_dtype)
+    kw = {
+        "down": dict(forward=True, x_is_zero=True, emit_residual=True),
+        "up_dot": dict(forward=False, emit_dot=True),
+        "warm": dict(forward=True),
+    }[variant]
+    xin = None if kw.get("x_is_zero") else x
+    full_cfg = SolverConfig(solve_dtype=dtype, mg_ew_dtype=ew_dtype, pallas_band_strip=0)
+    got = fused_smoother.smooth_level(xin, b, c, cfg, **kw)
+    full = fused_smoother.smooth_level(xin, b, c, full_cfg, **kw)
+    torch.cuda.synchronize()
+    got = got if isinstance(got, tuple) else (got,)
+    full = full if isinstance(full, tuple) else (full,)
+    for g, f in zip(got, full):
+        assert _rel(g, f) <= (grid_tol if g.dim() else dot_tol)
+
+
+@pytest.mark.parametrize("ew_dtype", [torch.bfloat16, None])
+@pytest.mark.parametrize("variant", ["down", "up_dot", "warm", "gs_only"])
+def test_bf16_field_kernel_matches_plain(device, ew_dtype, variant):
+    c, x, b, cfg = _level(device, torch.float32, ew_dtype)
+    kw = {
+        "down": dict(forward=True, x_is_zero=True, emit_residual=True),
+        "up_dot": dict(forward=False, emit_dot=True),
+        "warm": dict(forward=True),
+        "gs_only": dict(forward=True),  # the last pass runs in place and narrows
+    }[variant]
+    if variant == "gs_only":
+        cfg = SolverConfig(solve_dtype=torch.float32, mg_ew_dtype=ew_dtype, boundary_iterations=0)
+    xin = None if kw.get("x_is_zero") else x.to(torch.bfloat16)
+    bh = b.to(torch.bfloat16)
+    blocks = fused_smoother.level_blocks(c, cfg, torch.bfloat16)
+    before = fused_smoother.NARROW_LAUNCHES.count
+    got = fused_smoother.smooth_level(xin, bh, c, cfg, blocks=blocks, **kw)
+    torch.cuda.synchronize()
+    plan = fused_smoother.pass_plan(fused_smoother.schedule_for(cfg, kw["forward"]), True, True)
+    assert fused_smoother.NARROW_LAUNCHES.count - before == sum(not s.band_only for s in plan)
+    want = fused_smoother.smooth_level_torch(xin, bh, c, cfg, blocks=blocks, **kw)
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    assert got[0].dtype == torch.bfloat16
+    for g, w in zip(got, want):
+        if g.dim():
+            assert g.dtype == torch.bfloat16
+            assert float((g.double() - w.double()).abs().max()) <= _bf16_bound(w)
+        else:
+            assert g.dtype == torch.float32 and _rel(g, w) <= 1e-4
+    assert (got[0][~c.solvable] == 0).all()
+
+
+def test_bf16_residual_kernel_matches_plain(device):
+    c, x, b, _ = _level(device, torch.float32, torch.bfloat16)
+    bh = b.to(torch.bfloat16)
+    got = fused_cg.residual(x, bh, c.diag, c.ew0, c.ew1, c.ew2, mode="cuda")
+    torch.cuda.synchronize()
+    want = fused_cg.residual_torch(x, bh, c.diag, c.ew0, c.ew1, c.ew2)
+    assert got.dtype == want.dtype == torch.bfloat16
+    assert float((got.double() - want.double()).abs().max()) <= _bf16_bound(want)
+
+
+def test_frame_loop_kernels_match_plain_fp64(device):
+    n = 32
+    phi, velocity = sdf.splash_scene((n, n, n), device=device)
+    weights = sdf.open_box_weights((n, n, n), device=device)
+    cfg = SolverConfig(tolerance=1e-9, max_iterations=300)
+    fused_smoother.BAND_LAUNCHES.reset()
+    got = simulate.run(phi, velocity, weights, num_frames=3, dt=1.0 / 60.0, config=cfg)
+    assert fused_smoother.BAND_LAUNCHES.count > 0
+    want = simulate.run(phi, velocity, weights, num_frames=3, dt=1.0 / 60.0,
+                        config=SolverConfig(tolerance=1e-9, max_iterations=300, kernel_mode="torch"))
+    for g, w in zip(got, want):
+        assert g.iterations == w.iterations
+        assert _rel(g.pressure, w.pressure) <= 1e-10
+    assert got[1].window_reused and got[2].window_reused

@@ -72,14 +72,41 @@ def test_no_jax_import_in_port_sources():
     "knob, value",
     [
         ("pallas_interpret", True), ("pallas_block_t", 32), ("pallas_block_y", 48),
-        ("pallas_pad_coarse", True), ("pallas_band_strip", 128), ("transfer_mode", "mm"),
-        ("setup_fusion", "fused"), ("mg_field_dtype", torch.bfloat16),
-        ("interior_smoother", "chebyshev"),
+        ("pallas_pad_coarse", True), ("transfer_mode", "mm"),
+        ("setup_fusion", "fused"), ("interior_smoother", "chebyshev"),
     ],
 )
 def test_config_refuses_tpu_only_knobs(knob, value):
     with pytest.raises(TypeError):
         SolverConfig(**{knob: value})
+
+
+@pytest.mark.parametrize(
+    "knob, default, good, bad",
+    [
+        ("pallas_band_strip", 128, 0, -1),
+        ("pallas_band_strip", 128, 7, 1.5),
+        ("mg_field_dtype", None, torch.bfloat16, torch.float16),
+        ("mg_field_dtype", None, torch.bfloat16, torch.float32),
+        ("advection", "semi_lagrangian", "upwind", "maccormack"),
+    ],
+)
+def test_config_accepts_ported_knobs(knob, default, good, bad):
+    """Knobs the port now runs: the JAX package's names and defaults, and
+    bad values raise."""
+    from geometricmultigridpressuresolver_tpu.config import SolverConfig as JaxConfig
+
+    assert getattr(SolverConfig(), knob) == default == getattr(JaxConfig(), knob)
+    assert getattr(SolverConfig(**{knob: good}), knob) == good
+    with pytest.raises(ValueError):
+        SolverConfig(**{knob: bad})
+
+
+def test_frame_loop_knob_defaults_match_jax():
+    from geometricmultigridpressuresolver_tpu.config import SolverConfig as JaxConfig
+
+    for knob in ("window_slack", "advect_substeps"):
+        assert getattr(SolverConfig(), knob) == getattr(JaxConfig(), knob), knob
 
 
 @pytest.mark.parametrize(
