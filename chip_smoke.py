@@ -1,7 +1,8 @@
 """Drive the PyTorch/CUDA port once on one NVIDIA GPU and check it.
 
     python3 chip_smoke.py            # the 256^3 bench configuration
-    python3 chip_smoke.py --n 64     # a quick check after a kernel edit
+    python3 chip_smoke.py --n 40     # a quick check after a kernel edit (its
+                                     # 48^3 window still splits for phase 8)
 
 Phases (any failure exits non-zero and prints no result line):
   1. require CUDA; print the card (nvidia-smi) and the torch / CUDA versions;
@@ -27,7 +28,20 @@ Phases (any failure exits non-zero and prints no result line):
   7. the frame loop: simulate.run, 4 frames at 256^3 in the CLI's --fp32
      configuration, launch counts exact over the whole run; per frame the
      iterations, residual, divergence, stage seconds and window reuse;
-     frames 1-2 repeated with kernel_mode="torch" and compared.
+     frames 1-2 repeated with kernel_mode="torch" and compared;
+  8. the block-sharded path on a one-card block mesh (parallel.make_mesh(4),
+     (2, 2, 1)): the per-level flags and stacked sizes; project(...,
+     mesh=) with exact launch counts (block-mesh passes, halo gathers and
+     scatters, block-mesh CG steps, and the single-device levels' kernels)
+     and its pressure against phase 3's; the halo kernels, the block-mesh
+     smoother and CG step against their plain versions and the
+     single-device kernels at every sharded level; their times beside
+     their bounds (and the F.pad + unfold gather as the library call); the
+     best of 3 solves, single device and block mesh in turns.
+Every kernel's entry in the kernels JSON has its launches on its path, its
+error against the plain version, its time, the plain version's, its bound
+(bytes over 3.35 TB/s or float32 operations over 67 TFLOP/s, the larger)
+and the library call's time where one PyTorch call computes the same thing.
 The last lines are the kernels JSON, the nvidia-smi line, and
 {"ok": true, "device": {...}}.
 """
@@ -92,38 +106,92 @@ def bf16_ulp(scale: float) -> float:
     return 2.0 ** (math.floor(math.log2(scale)) - 7) if scale > 0 else 0.0
 
 
-def expected_launches(hier, config, iters: int, warm: bool = False) -> dict:
+def expected_launches(hier, config, iters: int, warm: bool = False, mesh=None) -> dict:
     """Kernel launches of one projection (project: solve + the recomputed
     residual) with `iters` CG iterations: every V-cycle (iters + 1) runs a
     downstroke and an upstroke block per smoothed level; `pass_plan` says
     which passes of each block are band-only.  A warm start adds the
-    initial residual."""
+    initial residual.
+
+    With a block `mesh`, a level that `mg.level_flags` calls "sharded" runs
+    every pass full over its stacked haloed blocks, in chunks of at most H
+    passes: per block, one gather of b, one of x per chunk (none for the
+    downstroke's zero start), one scatter of x per chunk and one of the
+    fused residual.  A sharded fine level runs the CG step there too (two
+    gathers and two scatters per step), and each solve gathers the
+    constant coefficients once (six arrays per sharded level, four for
+    the CG operator)."""
     import torch
 
     from geometricmultigridpressuresolver_tpu_torch.ops import fused_smoother
+    from geometricmultigridpressuresolver_tpu_torch.parallel import halo
     from geometricmultigridpressuresolver_tpu_torch.solver import mg
 
     blocks = mg.hierarchy_block_lists(hier, config)
+    flags = mg.level_flags(hier, config, mesh)
     narrow = mg.field_dtype(hier, config) == torch.bfloat16
     nlev = hier.num_levels
-    full = band = 0
+    full = band = sharded = gathers = 0
     for level in mg.smoothed_levels(hier):
         strokes = [(True, nlev == 1)] + ([(False, level == 0)] if nlev > 1 else [])
         for forward, dot in strokes:
+            schedule = fused_smoother.schedule_for(config, forward)
+            if flags[level] == "sharded":
+                chunks = -(-len(schedule) // halo.H)
+                residual = forward and nlev > 1 and fused_smoother.residual_fusable(config, True)
+                sharded += len(schedule)
+                gathers += 1 + chunks - int(forward) + chunks + int(residual)
+                continue
             plan = fused_smoother.pass_plan(
-                fused_smoother.schedule_for(config, forward),
-                blocks[level].band_cells is not None, dot or narrow,
+                schedule, blocks[level].band_cells is not None, dot or narrow,
             )
             band += sum(step.band_only for step in plan)
             full += sum(not step.band_only for step in plan)
     cycles = iters + 1
+    fine_sharded = flags[0] == "sharded"
+    once = 6 * sum(flags[lv] == "sharded" for lv in mg.smoothed_levels(hier)) + 4 * fine_sharded
     return {
         "smoother": 0 if narrow else full * cycles,
         "smoother_bf16": full * cycles if narrow else 0,
         "band_pass": band * cycles,
         "residual": (nlev - 1) * cycles + 1 + int(warm),
-        "cg_step": iters,
+        "cg_step": 0 if fine_sharded else iters,
+        "smoother_sharded": sharded * cycles,
+        "cg_step_sharded": iters if fine_sharded else 0,
+        "halo": gathers * cycles + 4 * iters * fine_sharded + once,
     }
+
+
+# Published H100 SXM peaks (NVIDIA data sheet) for the bounds: device
+# memory bytes per second and float32 operations per second outside the
+# tensor cores.
+HBM_BYTES_PER_S = 3.35e12
+FP32_OPS_PER_S = 67e12
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def bound(moved: float, ops: float) -> tuple[float, str]:
+    """(ms, "bytes" or "operations"): the least time the card could take to
+    move `moved` bytes and do `ops` float32 operations."""
+    t_bytes, t_ops = moved / HBM_BYTES_PER_S * 1e3, ops / FP32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+# Float operations per updated cell: the six-point neighbour sum (6
+# multiplies, 6 adds) plus the update's 4; the CG step adds p' = z + beta p
+# and the dot; the residual b - (diag x - S).
+OPS_PASS, OPS_CG_STEP, OPS_RESIDUAL, OPS_DOT = 16, 18, 15, 2
+
+
+def block_ops(schedule, cells: int, band_cells: int, dot: bool) -> int:
+    """Operations of one smoothing block as this run's data needs them: a
+    `b` pass updates the band cells, a GS half-sweep half the cells, a
+    Jacobi pass all of them."""
+    per = {"b": band_cells, "r": cells // 2, "k": cells // 2, "j": cells}
+    return OPS_PASS * sum(per[kind] for kind in schedule) + OPS_DOT * cells * dot
 
 
 def main(argv=None) -> int:
@@ -141,9 +209,11 @@ def main(argv=None) -> int:
     import scipy.sparse
     import scipy.sparse.linalg
 
+    from geometricmultigridpressuresolver_tpu_torch import parallel
     from geometricmultigridpressuresolver_tpu_torch.config import SolverConfig
     from geometricmultigridpressuresolver_tpu_torch.models import free_surface, sdf, simulate
     from geometricmultigridpressuresolver_tpu_torch.ops import _cuda, fused_cg, fused_smoother
+    from geometricmultigridpressuresolver_tpu_torch.parallel import fused_sharded, halo
     from geometricmultigridpressuresolver_tpu_torch.solver import mg, mgpcg
 
     torch.backends.cuda.matmul.allow_tf32 = False  # the coarse matmul in full fp32
@@ -173,6 +243,7 @@ def main(argv=None) -> int:
     counters = (
         fused_smoother.PASS_LAUNCHES, fused_smoother.BAND_LAUNCHES,
         fused_smoother.NARROW_LAUNCHES, fused_cg.STEP_LAUNCHES, fused_cg.RESIDUAL_LAUNCHES,
+        fused_smoother.SHARDED_LAUNCHES, fused_cg.SHARDED_STEP_LAUNCHES, halo.HALO_LAUNCHES,
     )
 
     def reset_counts():
@@ -236,9 +307,10 @@ def main(argv=None) -> int:
     grid_tol, dot_tol = 1e-5, 1e-4  # fp32: FMA contraction and summation order
     # bf16 fields: both sides compute in fp32 and round once, so they differ
     # by at most one bf16 ulp at the output's scale (plus the fp32 term).
-    names = ("smoother", "band_pass", "smoother_bf16", "cg_step", "residual")
+    names = ("smoother", "band_pass", "smoother_bf16", "cg_step", "residual",
+             "halo", "smoother_sharded", "cg_step_sharded")
     errs = dict.fromkeys(names, 0.0)      # grids, absolute
-    dot_errs = dict.fromkeys(names[:3] + ("cg_step",), 0.0)  # dots, relative
+    dot_errs = dict.fromkeys(names[:3] + ("cg_step", "smoother_sharded", "cg_step_sharded"), 0.0)  # dots, relative
 
     def check(name, what, got, want, tol=None):
         """tol None: the bf16 bound; else a relative bound."""
@@ -327,8 +399,9 @@ def main(argv=None) -> int:
     check("cg_step", "Ap'", got[1], want[1], grid_tol)
     check("cg_step", "<p', Ap'>", got[2], want[2], dot_tol)
     print(f"[4] kernel vs plain: fp32 within {grid_tol:g} (grids) / {dot_tol:g} (dots) relative, "
-          f"bf16 fields within one bf16 ulp at the output's scale; max abs grid errors {errs}, "
-          f"max relative dot errors {dot_errs}")
+          f"bf16 fields within one bf16 ulp at the output's scale; max abs grid errors "
+          f"{ {k: errs[k] for k in names[:5]} }, max relative dot errors "
+          f"{ {k: dot_errs[k] for k in names[:4]} }")
     print(f"[4] band-restricted vs full-grid kernel blocks: max relative difference {band_vs_full:.3e}")
     print(f"[4] worst full-grid smoother case: {max(worst, key=worst.get)} at {max(worst.values()):.3e} relative")
 
@@ -373,9 +446,25 @@ def main(argv=None) -> int:
         "smoother_bf16": "bf16-field fine upstroke block + dot",
         "cg_step": "CG step", "residual": "residual",
     }
+    # Bounds: each input read once and each output written once.
+    nb0, n0 = blk0.band_cells.numel(), c0.diag.numel()
+    upstroke = fused_smoother.schedule_for(config, False)
+    bounds = {
+        "smoother": bound(nbytes(x0f, b0f, c0.inv_diag, c0.ew0, c0.ew1, c0.ew2, c0.band, x0f),
+                          block_ops(upstroke, n0, nb0, True)),
+        "band_pass": bound(nb0 * (2 * x0f.element_size() + b0f.element_size() + c0.inv_diag.element_size()
+                                  + 3 * c0.ew0.element_size() + blk0.band_cells.element_size()),
+                           OPS_PASS * nb0),
+        "smoother_bf16": bound(nbytes(x0h, b0h, blk0h.narrow.inv_diag, c0.ew0, c0.ew1, c0.ew2, c0.band, x0h),
+                               block_ops(upstroke, n0, nb0, True)),
+        "cg_step": bound(nbytes(z, p, fine.diag, fine.ew0, fine.ew1, fine.ew2, z, p),
+                         OPS_CG_STEP * fine.diag.numel()),
+        "residual": bound(nbytes(x0f, b0f, c0.diag, c0.ew0, c0.ew1, c0.ew2, x0f), OPS_RESIDUAL * n0),
+    }
+    library = dict.fromkeys(names)  # no single PyTorch call computes these
     for name, (k_ms, p_ms) in times.items():
         print(f"[4] {name} at {tuple(c0.shape)}, {what[name]}: kernel {k_ms:.4f} ms, "
-              f"plain {p_ms:.4f} ms [{card}]")
+              f"plain {p_ms:.4f} ms, bound {bounds[name][0]:.4f} ms ({bounds[name][1]}) [{card}]")
     print(f"[4] band-restricted fine upstroke block + dot: kernel {band_block[0]:.4f} ms, "
           f"plain {band_block[1]:.4f} ms [{card}]")
 
@@ -514,6 +603,153 @@ def main(argv=None) -> int:
         require(rel <= 1e-3, f"frame {k + 1}: kernel and plain pressures differ by more than 1e-3")
     print(f"[7] plain frames 1-2 in {t_plain:.3f} s [{card}]")
 
+    # ---- 8. the block-sharded path on a one-card block mesh ---------------------------
+    mesh = parallel.make_mesh(4, device=dev)
+    flags = mg.level_flags(hier, config, mesh)
+    geoms = {}
+    for lv, c in enumerate(hier.levels):
+        line = f"[8] L{lv} {tuple(c.shape)} on {mesh.shape}: {flags[lv]}"
+        if flags[lv] == "sharded":
+            geoms[lv] = geom = halo.geometry(mesh, c.shape)
+            stacked = geom.stacked_shape
+            line += (f", {geom.blocks} blocks of {geom.core} cores + {halo.H}-cell halos, stacked "
+                     f"{stacked} = {np.prod(stacked) / c.diag.numel():.3f}x the level")
+        print(line)
+    require(flags[0] == "sharded", f"the fine level {tuple(hier.levels[0].shape)} does not split on "
+            f"{mesh.shape}; run at a size whose window splits (the default 256)")
+    sharded_levels = [lv for lv in mg.smoothed_levels(hier) if flags[lv] == "sharded"]
+    pre = {lv: fused_sharded.prehalo_coeffs(hier.levels[lv], mesh) for lv in sharded_levels}
+    pre_cg = fused_sharded.prehalo_cg_coeffs(fine, mesh)
+    print(f"[8] stacked coefficients per solve: smoother "
+          f"{sum(nbytes(*(t for t in pc if t is not None)) for pc in pre.values()) / 1e9:.3f} GB, "
+          f"CG operator {nbytes(*pre_cg) / 1e9:.3f} GB")
+
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    result_m = free_surface.project(setup, velocity, config=config, mesh=mesh)
+    torch.cuda.synchronize()
+    t_mesh = time.perf_counter() - t0
+    launches_m = read_counts()
+    iters_m = result_m.cg.iterations
+    expected_m = expected_launches(hier, config, iters_m, mesh=mesh)
+    print(f"[8] project(mesh={mesh.shape}): {t_mesh:.2f} s, {iters_m} iterations, relative residual "
+          f"{result_m.cg.relative_residual:.3e}, max divergence {float(result_m.max_divergence):.3e}, "
+          f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    print(f"[8] kernel launches {launches_m}, expected {expected_m}")
+    require(launches_m == expected_m, "block-mesh launch counts differ from what the flags imply")
+    for key in ("smoother_sharded", "halo", "cg_step_sharded"):
+        require(launches_m[key] > 0, f"the block-mesh path never launched {key}")
+    require(result_m.cg.converged and result_m.cg.relative_residual <= 1e-5,
+            "the block-mesh projection did not converge to 1e-5")
+    require(bool(torch.isfinite(result_m.pressure).all()) and tuple(result_m.pressure.shape) == (n, n, n),
+            "block-mesh pressure")
+    _, mesh_rel = rel_err(result_m.pressure, result.pressure)
+    print(f"[8] block mesh vs single device: iterations {iters_m} vs {iters}, pressure max relative "
+          f"difference {mesh_rel:.3e}")
+    require(abs(iters_m - iters) <= 1, "block-mesh and single-device iterations differ by more than 1")
+    require(mesh_rel <= 1e-4, "block-mesh and single-device pressures differ by more than 1e-4")
+
+    # Each block-mesh kernel against its plain version (the same functions with
+    # kernel_mode="torch") and against the single-device kernel, at every
+    # sharded level; the halo kernels on each dtype the path copies.
+    single_diff = 0.0
+    for lv in sharded_levels:
+        c, geom = hier.levels[lv], geoms[lv]
+        for t in (rand_field(c), c.ew0, c.band):
+            got = halo.halo_gather(t, geom, "cuda")
+            back = halo.core_scatter(got, geom, "cuda")
+            torch.cuda.synchronize()
+            want = halo.halo_gather_torch(t, geom)
+            errs["halo"] = max(errs["halo"], float((got.double() - want.double()).abs().max()))
+            require(torch.equal(got, want), f"L{lv} halo gather of {t.dtype} differs from plain")
+            require(torch.equal(back, t) and torch.equal(back, halo.core_scatter_torch(got, geom)),
+                    f"L{lv} core scatter of {t.dtype} differs from plain")
+        x, b = rand_field(c), rand_field(c)
+        pre_t = fused_sharded.prehalo_coeffs(c, mesh, "torch")
+        for case, kw in cases.items():
+            xx = None if kw.get("x_is_zero") else x
+            key = f"L{lv} {case}"
+            got = as_tuple(fused_sharded.smooth_level_sharded(xx, b, c, config, mesh=mesh, prehaloed=pre[lv], **kw))
+            torch.cuda.synchronize()
+            want = as_tuple(fused_sharded.smooth_level_sharded(xx, b, c, config_t, mesh=mesh, prehaloed=pre_t, **kw))
+            single = as_tuple(fused_smoother.smooth_level(xx, b, c, config_full, **kw))
+            for i, (g, w, s) in enumerate(zip(got, want, single)):
+                tol = grid_tol if g.dim() else dot_tol
+                check("smoother_sharded", f"{key} [{i}] vs plain", g, w, tol)
+                single_diff = max(single_diff, rel_err(g, s)[1])
+                require(rel_err(g, s)[1] <= tol, f"block-mesh {key} [{i}] differs from the single-device kernel")
+    zf, pf = rand_field(fine), rand_field(fine)
+    got = fused_sharded.cg_step_sharded(zf, pf, beta, fine, config, mesh, prehaloed_cg=pre_cg)
+    torch.cuda.synchronize()
+    pre_cg_t = fused_sharded.prehalo_cg_coeffs(fine, mesh, "torch")
+    want = fused_sharded.cg_step_sharded(zf, pf, beta, fine, config_t, mesh, prehaloed_cg=pre_cg_t)
+    single = fused_cg.search_matvec_dot(zf, pf, beta, fine.diag, fine.ew0, fine.ew1, fine.ew2, mode="cuda")
+    for what_, g, w, s in zip(("p'", "Ap'", "<p', Ap'>"), got, want, single):
+        tol = grid_tol if g.dim() else dot_tol
+        check("cg_step_sharded", f"{what_} vs plain", g, w, tol)
+        single_diff = max(single_diff, rel_err(g, s)[1])
+        require(rel_err(g, s)[1] <= tol, f"block-mesh CG step {what_} differs from the single-device kernel")
+    print(f"[8] block-mesh kernels vs plain: max abs grid errors "
+          f"{ {k: errs[k] for k in names[5:]} }, max relative dot errors "
+          f"{ {k: dot_errs[k] for k in names[6:]} }; vs the single-device kernels: max relative "
+          f"difference {single_diff:.3e}")
+
+    # Times at the fine level: one gather of an fp32 field, the fine upstroke
+    # block with the rho dot (gathers, passes and scatter), one CG step.
+    geom0 = geoms[0]
+    (bx, by), (hx, hy) = geom0.core, geom0.halo
+    pre0_t = fused_sharded.prehalo_coeffs(c0, mesh, "torch")
+
+    def library_gather():
+        padded = torch.nn.functional.pad(x0f, (0, 0, hy, hy, hx, hx))
+        view = padded.unfold(0, bx + 2 * hx, bx).unfold(1, by + 2 * hy, by)
+        return view.permute(0, 1, 3, 4, 2).contiguous().view(geom0.stacked_shape)
+
+    require(torch.equal(library_gather(), halo.halo_gather(x0f, geom0)), "library gather differs")
+    times["halo"] = (cuda_ms(lambda: halo.halo_gather(x0f, geom0, "cuda"), reps),
+                     cuda_ms(lambda: halo.halo_gather_torch(x0f, geom0), reps))
+    library["halo"] = cuda_ms(library_gather, reps)
+    times["smoother_sharded"] = (
+        cuda_ms(lambda: fused_sharded.smooth_level_sharded(
+            x0f, b0f, c0, config, False, mesh, prehaloed=pre[0], emit_dot=True), reps),
+        cuda_ms(lambda: fused_sharded.smooth_level_sharded(
+            x0f, b0f, c0, config_t, False, mesh, prehaloed=pre0_t, emit_dot=True), reps),
+    )
+    times["cg_step_sharded"] = (
+        cuda_ms(lambda: fused_sharded.cg_step_sharded(z, p, beta, fine, config, mesh, prehaloed_cg=pre_cg), reps),
+        cuda_ms(lambda: fused_sharded.cg_step_sharded(z, p, beta, fine, config_t, mesh, prehaloed_cg=pre_cg_t), reps),
+    )
+    p0 = pre[0]
+    stacked0 = p0.band.numel()
+    bounds["halo"] = bound(nbytes(x0f) + x0f.element_size() * stacked0, 0)
+    bounds["smoother_sharded"] = bound(
+        nbytes(x0f, b0f, p0.inv_diag, p0.ew0, p0.ew1, p0.ew2, p0.band, x0f),
+        block_ops(upstroke, stacked0, int(torch.count_nonzero(p0.band)), True),
+    )
+    bounds["cg_step_sharded"] = bound(nbytes(z, p, *pre_cg, z, p), OPS_CG_STEP * stacked0)
+    what.update(halo="halo gather of one fp32 field",
+                smoother_sharded="block-mesh fine upstroke block + dot (gathers, 8 passes, scatter)",
+                cg_step_sharded="block-mesh CG step (gathers, step, scatters)")
+    for name in names[5:]:
+        k_ms, p_ms = times[name]
+        lib = "" if library[name] is None else f", library {library[name]:.4f} ms"
+        print(f"[8] {name} at {tuple(c0.shape)}, {what[name]}: kernel {k_ms:.4f} ms, plain "
+              f"{p_ms:.4f} ms{lib}, bound {bounds[name][0]:.4f} ms ({bounds[name][1]}) [{card}]")
+
+    # Whole solves, single device and block mesh in turns.
+    order = (None, mesh, mesh, None, None, mesh)
+    best_m = {None: float("inf"), mesh: float("inf")}
+    for m in order:
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        res = mgpcg.solve(setup.problem, rhs, config=config, mesh=m)
+        torch.cuda.synchronize()
+        best_m[m] = min(best_m[m], time.perf_counter() - t)
+        require(res.converged, "a timed solve did not converge")
+    print(f"[8] solve best of 3: single device {best_m[None]:.4f} s, block mesh {mesh.shape} "
+          f"{best_m[mesh]:.4f} s ({best_m[mesh] / best_m[None]:.2f}x) [{card}]")
+
     src = "geometricmultigridpressuresolver_tpu_torch/csrc/"
     jax_src = "geometricmultigridpressuresolver_tpu/"
     kernels = [
@@ -527,13 +763,21 @@ def main(argv=None) -> int:
          "replaces": jax_src + "ops/pallas_cg.py:329"},
         {"name": "residual", "route": "cuda", "source": src + "cg.cu",
          "replaces": jax_src + "ops/pallas_cg.py:253"},
+        {"name": "halo", "route": "cuda", "source": src + "halo.cu",
+         "replaces": jax_src + "parallel/halo.py:42"},
+        {"name": "smoother_sharded", "route": "cuda", "source": src + "smoother.cu",
+         "replaces": jax_src + "parallel/pallas_sharded.py:204"},
+        {"name": "cg_step_sharded", "route": "cuda", "source": src + "cg.cu",
+         "replaces": jax_src + "parallel/pallas_sharded.py:120"},
     ]
     for k in kernels:
         name = k["name"]
-        # The bf16-field smoother runs on the bf16-field projection's path.
-        k.update(launches=(launches_h if name == "smoother_bf16" else launches)[name],
-                 launches_frame_loop=launches_loop[name], max_abs_err=errs[name],
-                 ms=times[name][0], plain_ms=times[name][1])
+        # The bf16-field smoother runs on the bf16-field projection's path,
+        # the block-mesh kernels on the block-mesh projection's.
+        path = launches_h if name == "smoother_bf16" else launches_m if name in names[5:] else launches
+        k.update(launches=path[name], launches_frame_loop=launches_loop[name], max_abs_err=errs[name],
+                 ms=times[name][0], plain_ms=times[name][1], bound_ms=bounds[name][0],
+                 bound_by=bounds[name][1], library_ms=library[name])
         if name in dot_errs:
             k["dot_max_rel_err"] = dot_errs[name]
     print(json.dumps({"kernels": kernels}))

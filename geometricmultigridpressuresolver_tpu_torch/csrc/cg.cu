@@ -9,7 +9,10 @@
 // nothing, so each thread recomputes p' at itself and its six neighbours
 // (z + beta*p is the same expression everywhere, hence the same value) and
 // no grid-wide sync is needed.  beta arrives by device pointer, so the CG
-// loop needs no host read to launch the step.  Bound: device memory, about
+// loop needs no host read to launch the step.  Only cells in the core
+// window (common.cuh: CoreWindow) add to the dot: on the stacked grid of a
+// block mesh (parallel/fused_sharded.py::cg_step_sharded) that counts each
+// global cell once; the full window is the plain dot, bit for bit.  Bound: device memory, about
 // 6*4 B read + 2*4 B written = 32 B/cell in fp32 with fp32 edge weights;
 // the six neighbour reads of z and p hit L1/L2.
 //
@@ -34,7 +37,7 @@ cg_step_kernel(const T* __restrict__ z, const T* __restrict__ p,
                const E* __restrict__ e0, const E* __restrict__ e1,
                const E* __restrict__ e2, T* __restrict__ p_out,
                T* __restrict__ ap_out, T* __restrict__ partials, int nx, int ny,
-               int nz) {
+               int nz, CoreWindow win) {
   const long long n = (long long)nx * ny * nz;
   const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   const T beta = *beta_ptr;
@@ -47,7 +50,7 @@ cg_step_kernel(const T* __restrict__ z, const T* __restrict__ p,
     const T ap = diag[idx] * pc - s;
     p_out[idx] = pc;
     ap_out[idx] = ap;
-    contrib = pc * ap;
+    if (in_core(win, c)) contrib = pc * ap;
   }
   const T total = block_sum(contrib);
   if (threadIdx.x == 0) partials[blockIdx.x] = total;
@@ -83,7 +86,7 @@ cudaError_t launch_cg_step(const void* z, const void* p, const void* beta,
                            const void* diag, const void* e0, const void* e1,
                            const void* e2, void* p_out, void* ap_out,
                            void* partials, int nx, int ny, int nz,
-                           cudaStream_t stream) {
+                           CoreWindow win, cudaStream_t stream) {
   const long long n = (long long)nx * ny * nz;
   if (n == 0) return cudaSuccess;
   cg_step_kernel<T, E><<<num_blocks(n), kBlock, 0, stream>>>(
@@ -91,7 +94,7 @@ cudaError_t launch_cg_step(const void* z, const void* p, const void* beta,
       static_cast<const T*>(beta), static_cast<const T*>(diag),
       static_cast<const E*>(e0), static_cast<const E*>(e1),
       static_cast<const E*>(e2), static_cast<T*>(p_out),
-      static_cast<T*>(ap_out), static_cast<T*>(partials), nx, ny, nz);
+      static_cast<T*>(ap_out), static_cast<T*>(partials), nx, ny, nz, win);
   return cudaGetLastError();
 }
 
@@ -122,16 +125,20 @@ cudaError_t launch_residual(const void* x, const void* b, const void* diag,
 
 extern "C" int gmg_block_size() { return gmg::kBlock; }
 
+// period, lo_x, hi_x, lo_y, hi_y: the dot's core window.
 extern "C" int gmg_cg_step(int fdt, int edt, const void* z, const void* p,
                            const void* beta, const void* diag, const void* e0,
                            const void* e1, const void* e2, void* p_out,
                            void* ap_out, void* partials, int nx, int ny,
-                           int nz, void* stream) {
+                           int nz, int period, int lo_x, int hi_x, int lo_y,
+                           int hi_y, void* stream) {
   using namespace gmg;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (period <= 0) return (int)cudaErrorInvalidValue;
+  const CoreWindow win{period, lo_x, hi_x, lo_y, hi_y};
 #define GMG_STEP(T, E)                                                     \
   launch_cg_step<T, E>(z, p, beta, diag, e0, e1, e2, p_out, ap_out,        \
-                       partials, nx, ny, nz, s)
+                       partials, nx, ny, nz, win, s)
   GMG_DISPATCH(GMG_STEP)
 #undef GMG_STEP
 }

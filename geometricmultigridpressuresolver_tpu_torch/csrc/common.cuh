@@ -78,6 +78,21 @@ __device__ __forceinline__ T neighbor_sum(F val, const E* e0, const E* e1,
   return s;
 }
 
+// Core window of a stacked block grid (parallel/halo.py): the haloed
+// blocks of a one-card block mesh lie one after another along x, each
+// `period` rows long; a cell is a core cell when its row within its block
+// is in [lo_x, hi_x) and its y index in [lo_y, hi_y).  Only core cells add
+// to a dot.  The full window (period = nx, [0, nx) x [0, ny)) admits every
+// cell, which is the plain grid.
+struct CoreWindow {
+  int period, lo_x, hi_x, lo_y, hi_y;
+};
+
+__device__ __forceinline__ bool in_core(const CoreWindow& w, Cell c) {
+  const int r = c.i % w.period;
+  return r >= w.lo_x && r < w.hi_x && c.j >= w.lo_y && c.j < w.hi_y;
+}
+
 // Block-wide sum in a fixed order; the result is valid in thread 0.
 // Every thread of the block must call it.
 template <typename T>

@@ -15,7 +15,10 @@
 //   'j' (kind 2): (1-w)*x + w*inv_diag*(b+S).  Simultaneous, not in place.
 // A null x_in reads as x == 0 (the V-cycle downstroke's zero start).
 // With `partials` the pass also writes one partial of <x_new, b> per block
-// (the CG rho when this is the fine upstroke's last pass).
+// (the CG rho when this is the fine upstroke's last pass); only cells in
+// the core window add to it (common.cuh: CoreWindow), so on a stacked grid
+// of haloed blocks the dot counts each global cell once.  The full window
+// makes it the plain dot, bit for bit.
 //
 // Types: T computes; b, inv_diag and the optional narrow output `x_store`
 // are stored as S; x_in is XI and x_out is T.  S = T for float and double
@@ -52,7 +55,7 @@ smooth_pass_kernel(const XI* x_in, T* x_out, S* __restrict__ x_store,
                    const E* __restrict__ e0, const E* __restrict__ e1,
                    const E* __restrict__ e2, const int8_t* __restrict__ band,
                    int nx, int ny, int nz, int color, T w, T one_minus_w,
-                   T* __restrict__ partials) {
+                   T* __restrict__ partials, CoreWindow win) {
   const long long n = (long long)nx * ny * nz;
   const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   T contrib = T(0);
@@ -88,7 +91,7 @@ smooth_pass_kernel(const XI* x_in, T* x_out, S* __restrict__ x_store,
     // In place, the cells this pass does not update are already right.
     if (x_out && (update || (const void*)x_out != (const void*)x_in)) x_out[idx] = xn;
     if (x_store) store_as(x_store, idx, xn);
-    if (partials) contrib = xn * load_as<T>(b, idx);
+    if (partials && in_core(win, c)) contrib = xn * load_as<T>(b, idx);
   }
   if (partials) {
     const T total = block_sum(contrib);
@@ -123,7 +126,8 @@ cudaError_t launch_pass(int kind, int color, double damping, const void* x_in,
                         void* x_out, void* x_store, const void* b,
                         const void* inv_diag, const void* e0, const void* e1,
                         const void* e2, const void* band, int nx, int ny,
-                        int nz, void* partials, cudaStream_t stream) {
+                        int nz, void* partials, CoreWindow win,
+                        cudaStream_t stream) {
   const long long n = (long long)nx * ny * nz;
   if (n == 0) return cudaSuccess;
   const T w = T(damping);
@@ -142,15 +146,15 @@ cudaError_t launch_pass(int kind, int color, double damping, const void* x_in,
   switch (kind) {
     case 0:
       smooth_pass_kernel<T, S, XI, E, 0><<<grid, kBlock, 0, stream>>>(
-          xi, xo, xs, bp, ip, w0, w1, w2, bd, nx, ny, nz, color, w, omw, pp);
+          xi, xo, xs, bp, ip, w0, w1, w2, bd, nx, ny, nz, color, w, omw, pp, win);
       break;
     case 1:
       smooth_pass_kernel<T, S, XI, E, 1><<<grid, kBlock, 0, stream>>>(
-          xi, xo, xs, bp, ip, w0, w1, w2, bd, nx, ny, nz, color, w, omw, pp);
+          xi, xo, xs, bp, ip, w0, w1, w2, bd, nx, ny, nz, color, w, omw, pp, win);
       break;
     case 2:
       smooth_pass_kernel<T, S, XI, E, 2><<<grid, kBlock, 0, stream>>>(
-          xi, xo, xs, bp, ip, w0, w1, w2, bd, nx, ny, nz, color, w, omw, pp);
+          xi, xo, xs, bp, ip, w0, w1, w2, bd, nx, ny, nz, color, w, omw, pp, win);
       break;
     default:
       return cudaErrorInvalidValue;
@@ -180,20 +184,24 @@ cudaError_t launch_band(double damping, const void* x_in, void* x_out,
 // type of x_in; edt: edge-weight type.  Instances: float and double fields
 // (S = XI = T) with float/bf16 (and double) edge weights, and bfloat16
 // storage over float compute with x_in bfloat16 (the stored x) or float
-// (an intermediate buffer).
+// (an intermediate buffer).  period, lo_x, hi_x, lo_y, hi_y: the dot's
+// core window (the full grid without a stacked layout).
 extern "C" int gmg_smooth_pass(int fdt, int sdt, int xdt, int edt, int kind,
                                int color, double damping, const void* x_in,
                                void* x_out, void* x_store, const void* b,
                                const void* inv_diag, const void* e0,
                                const void* e1, const void* e2,
                                const void* band, int nx, int ny, int nz,
-                               void* partials, void* stream) {
+                               void* partials, int period, int lo_x,
+                               int hi_x, int lo_y, int hi_y, void* stream) {
   using namespace gmg;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (period <= 0) return (int)cudaErrorInvalidValue;
+  const CoreWindow win{period, lo_x, hi_x, lo_y, hi_y};
 #define GMG_PASS(T, S, XI, E)                                                  \
   launch_pass<T, S, XI, E>(kind, color, damping, x_in, x_out, x_store, b,     \
                            inv_diag, e0, e1, e2, band, nx, ny, nz, partials,  \
-                           s)
+                           win, s)
   if (fdt == kF32 && sdt == kF32 && xdt == kF32) {
     if (edt == kF32) return GMG_PASS(float, float, float, float);
     if (edt == kBF16) return GMG_PASS(float, float, float, __nv_bfloat16);

@@ -5,7 +5,8 @@ containers (``LevelCoeffs``, ``MGHierarchy``, ``PoissonProblem``,
 ``ProjectionSetup``) to nested mappings of numpy arrays under the same
 field names -- e.g. ``np.asarray`` over ``NamedTuple._asdict()``, with tuples
 of levels as sequences -- and these functions rebuild the port's containers
-on `device`.  A solve can then be compared on bit-identical hierarchies,
+on `device`: the card unless the call names another (``device="cpu"`` for
+a CPU run).  A solve can then be compared on bit-identical hierarchies,
 apart from the setup build.
 
 bfloat16 arrays (numpy's ``ml_dtypes.bfloat16``, what ``np.asarray`` of a
@@ -19,6 +20,7 @@ from typing import Mapping
 import numpy as np
 import torch
 
+from geometricmultigridpressuresolver_tpu_torch import device as device_mod
 from geometricmultigridpressuresolver_tpu_torch.models.free_surface import ProjectionSetup
 from geometricmultigridpressuresolver_tpu_torch.ops.stencil import LevelCoeffs
 from geometricmultigridpressuresolver_tpu_torch.solver.mg import MGHierarchy
@@ -27,6 +29,7 @@ from geometricmultigridpressuresolver_tpu_torch.solver.mgpcg import PoissonProbl
 
 def tensor(arr, device=None) -> torch.Tensor:
     """numpy array -> torch tensor on `device`, bfloat16 included."""
+    device = device_mod.resolve(device)
     arr = np.array(arr)  # a writable, contiguous copy
     if arr.dtype.name == "bfloat16":
         return torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16).to(device)
@@ -34,6 +37,7 @@ def tensor(arr, device=None) -> torch.Tensor:
 
 
 def level_from_arrays(d: Mapping, device=None) -> LevelCoeffs:
+    device = device_mod.resolve(device)
     return LevelCoeffs(
         solvable=tensor(d["solvable"], device).to(torch.bool),
         band=tensor(d["band"], device).to(torch.int8),
@@ -46,6 +50,7 @@ def level_from_arrays(d: Mapping, device=None) -> LevelCoeffs:
 
 
 def hierarchy_from_arrays(d: Mapping, device=None) -> MGHierarchy:
+    device = device_mod.resolve(device)
     return MGHierarchy(
         levels=tuple(level_from_arrays(lv, device) for lv in d["levels"]),
         coarse_dofs=tensor(d["coarse_dofs"], device).to(torch.int64),
@@ -55,6 +60,7 @@ def hierarchy_from_arrays(d: Mapping, device=None) -> MGHierarchy:
 
 
 def problem_from_arrays(d: Mapping, device=None) -> PoissonProblem:
+    device = device_mod.resolve(device)
     return PoissonProblem(
         fine=level_from_arrays(d["fine"], device),
         hier=hierarchy_from_arrays(d["hier"], device),
@@ -62,6 +68,7 @@ def problem_from_arrays(d: Mapping, device=None) -> PoissonProblem:
 
 
 def setup_from_arrays(d: Mapping, device=None) -> ProjectionSetup:
+    device = device_mod.resolve(device)
     return ProjectionSetup(
         problem=problem_from_arrays(d["problem"], device),
         material=tensor(d["material"], device).to(torch.int8),

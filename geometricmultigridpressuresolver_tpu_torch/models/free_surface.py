@@ -24,6 +24,7 @@ from typing import NamedTuple, Sequence
 import numpy as np
 import torch
 
+from geometricmultigridpressuresolver_tpu_torch import device as device_mod
 from geometricmultigridpressuresolver_tpu_torch.config import SolverConfig
 from geometricmultigridpressuresolver_tpu_torch.grids import CellLabel, MaterialLabel, face_shape
 from geometricmultigridpressuresolver_tpu_torch.ops import domain as domain_ops
@@ -242,7 +243,8 @@ def build_setup(
     device=None,
     reuse_from: ProjectionSetup | None = None,
 ) -> ProjectionSetup:
-    """Steps 1-4 on `device` (default: liquid_phi's device, CPU for numpy):
+    """Steps 1-4 on `device` (default: liquid_phi's device if it is a
+    tensor, else the card):
     labels, valid faces, MG domain and weights, the compact window and the
     hierarchy.
 
@@ -257,7 +259,7 @@ def build_setup(
     validate_density(density)
     validate_fields(liquid_phi, cut_cell_weights, solid_phi=solid_phi)
     sd = config.solve_dtype
-    dev = mg_mod._device_of(liquid_phi, device)
+    dev = device_mod.of(liquid_phi, device)
     liquid_phi = torch.as_tensor(liquid_phi, dtype=sd, device=dev)
     cut_cell_weights = tuple(torch.as_tensor(w, dtype=sd, device=dev) for w in cut_cell_weights)
     if solid_phi is not None:
@@ -411,9 +413,12 @@ def project(
     solid_velocity: Sequence | None = None,
     old_pressure=None,
     config: SolverConfig | None = None,
+    mesh=None,
 ) -> ProjectionResult:
     """Steps 5-9: RHS, warm start, MGPCG solve, writeback, audit, on the
-    device that holds `setup` (inputs are moved there)."""
+    device that holds `setup` (inputs are moved there).  `mesh` (a one-card
+    `parallel.mesh.BlockMesh`) runs the solve's sharded levels block by
+    block (`mgpcg.solve(..., mesh=)`)."""
     if config is None:
         config = SolverConfig()
     validate_fields(setup.material, setup.weights, velocity=velocity)
@@ -436,7 +441,7 @@ def project(
         warm = torch.where(liquid_mask, old, torch.zeros_like(old))
         x0 = embed_window(warm, setup.window_start, setup.base_pads, setup.expanded_shape)
 
-    cg_result = mgpcg.solve(setup.problem, rhs, x0, config)
+    cg_result = mgpcg.solve(setup.problem, rhs, x0, config, mesh=mesh)
 
     pressure = extract_window(cg_result.x, setup.window_start, setup.base_pads, rhs_base.shape)
     pressure = torch.where(liquid_mask, pressure, torch.zeros_like(pressure))

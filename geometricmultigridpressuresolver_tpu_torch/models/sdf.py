@@ -1,7 +1,8 @@
 """Synthetic signed-distance fields and cut-cell face weights (torch).
 
 Port of ``models/sdf.py``: scene generators that build their fields
-directly on `device` (the 256^3 scene is made on the card).  Conventions:
+directly on `device`: the card unless the call names another (the 256^3
+scene is made on the card; CPU runs pass ``device="cpu"``).  Conventions:
 
   * liquid SDF `phi`: cell-centered, <= 0 inside the liquid;
   * solid SDF: >= 0 inside the solid;
@@ -15,6 +16,7 @@ import math
 
 import torch
 
+from geometricmultigridpressuresolver_tpu_torch import device as device_mod
 from geometricmultigridpressuresolver_tpu_torch.grids import face_shape
 
 
@@ -22,6 +24,7 @@ def cell_centers(shape, dx: float | None = None, device=None, dtype=torch.float6
     """Cell-center coordinates in [0,1]^3 (dx = 1/max(shape) by default)."""
     if dx is None:
         dx = 1.0 / max(shape)
+    device = device_mod.resolve(device)
     axes = [(torch.arange(s, dtype=dtype, device=device) + 0.5) * dx for s in shape]
     return torch.meshgrid(*axes, indexing="ij"), dx
 
@@ -49,6 +52,7 @@ def splash_scene(
     """A pool plus a falling liquid drop.  Returns (liquid_phi, velocity):
     the drop moves down with a jump at its surface, and the x-component is
     compressive, so the velocity has nonzero divergence in the liquid."""
+    device = device_mod.resolve(device)
     points, dx = cell_centers(shape, device=device, dtype=dtype)
     liquid_phi = torch.minimum(
         pool_sdf(points, pool_height), sphere_sdf(points, drop_center, drop_radius)
@@ -80,6 +84,7 @@ def face_weights_from_solid(
     face with solid_fn < 0; below `clamp` -> 0; domain-boundary faces 0."""
     if dx is None:
         dx = 1.0 / max(shape)
+    device = device_mod.resolve(device)
     offsets = [(o + 0.5) / samples for o in range(samples)]
     weights = []
     for axis in range(3):

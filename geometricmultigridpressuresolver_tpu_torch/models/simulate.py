@@ -21,6 +21,7 @@ from typing import NamedTuple, Sequence
 
 import torch
 
+from geometricmultigridpressuresolver_tpu_torch import device as device_mod
 from geometricmultigridpressuresolver_tpu_torch.config import SolverConfig
 from geometricmultigridpressuresolver_tpu_torch.models import free_surface
 
@@ -200,9 +201,11 @@ def step(
     solid_phi=None,
     config: SolverConfig | None = None,
     reuse_setup: free_surface.ProjectionSetup | None = None,
+    device=None,
 ) -> FrameResult:
     """One frame: advect, apply gravity, rebuild the setup, project, on
-    liquid_phi's device (CPU for numpy input).
+    `device` (default: liquid_phi's device if it is a tensor, else the
+    card).
 
     `reuse_setup` (the previous frame's setup) keeps the window shape
     sticky across frames.  The stage times in `seconds` end on a device
@@ -211,7 +214,7 @@ def step(
     if config is None:
         config = SolverConfig()
     sd = config.solve_dtype
-    dev = liquid_phi.device if isinstance(liquid_phi, torch.Tensor) else torch.device("cpu")
+    dev = device_mod.of(liquid_phi, device)
     dx = 1.0 / max(liquid_phi.shape)
     velocity = tuple(torch.as_tensor(v, dtype=sd, device=dev) for v in velocity)
     liquid_phi = torch.as_tensor(liquid_phi, dtype=sd, device=dev)
@@ -261,11 +264,12 @@ def run(
     on_frame=None,
     start_frame: int = 0,
     old_pressure=None,
+    device=None,
 ) -> list[FrameResult]:
     """Run `num_frames` steps, warm-starting each solve from the last
     pressure and keeping each frame's window shape for the next; returns
-    the per-frame results (the flipSplash loop).  `on_frame(k, result)` is
-    called after frame k."""
+    the per-frame results (the flipSplash loop), on `device` as `step`
+    places it.  `on_frame(k, result)` is called after frame k."""
     if config is None:
         config = SolverConfig()
     frames = []
@@ -275,7 +279,7 @@ def run(
         fr = step(
             liquid_phi, velocity, cut_cell_weights, dt, gravity,
             old_pressure=pressure, solid_phi=solid_phi, config=config,
-            reuse_setup=setup,
+            reuse_setup=setup, device=device,
         )
         setup = fr.setup
         # Keep only the latest setup (for reuse): one per frame would keep
@@ -290,7 +294,7 @@ def run(
 def main(argv=None):
     """The flipSplash loop as a command:
 
-        gmg-torch-simulate --n 128 --frames 24 [--fp32] [--device cuda]
+        gmg-torch-simulate --n 128 --frames 24 [--fp32] [--device cpu]
     """
     import argparse
 
@@ -304,8 +308,11 @@ def main(argv=None):
     p.add_argument("--tolerance", type=float, default=1e-5)
     p.add_argument("--fp32", action="store_true",
                    help="solve in float32 (bfloat16 MG edge weights)")
-    p.add_argument("--device", default="cuda" if torch.cuda.is_available() else "cpu")
+    p.add_argument("--device", default="cuda",
+                   help="cuda (the default; needs a card) or cpu")
     args = p.parse_args(argv)
+    if torch.device(args.device).type == "cuda" and not torch.cuda.is_available():
+        p.error("no CUDA device is available; pass --device cpu to run on the CPU")
 
     kwargs = {"tolerance": args.tolerance}
     if args.fp32:

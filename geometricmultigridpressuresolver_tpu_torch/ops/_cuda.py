@@ -46,14 +46,16 @@ _I = ctypes.c_int
 _SIGNATURES = {
     "gmg_block_size": ([], _I),
     "gmg_smooth_pass": (
-        [_I] * 6 + [ctypes.c_double] + [_P] * 9 + [_I, _I, _I, _P, _P], _I
+        [_I] * 6 + [ctypes.c_double] + [_P] * 9 + [_I, _I, _I, _P] + [_I] * 5 + [_P], _I
     ),
     "gmg_band_pass": (
         [_I, _I, _I, ctypes.c_double] + [_P] * 8 + [ctypes.c_longlong, _I, _I, _I, _P], _I
     ),
-    "gmg_cg_step": ([_I, _I] + [_P] * 10 + [_I, _I, _I, _P], _I),
+    "gmg_cg_step": ([_I, _I] + [_P] * 10 + [_I, _I, _I] + [_I] * 5 + [_P], _I),
     "gmg_residual": ([_I, _I, _I] + [_P] * 7 + [_I, _I, _I, _P], _I),
     "gmg_sum_partials": ([_I, _P, ctypes.c_longlong, _P, _P], _I),
+    "gmg_halo_gather": ([_I, _P, _P] + [_I] * 9 + [_P], _I),
+    "gmg_core_scatter": ([_I, _P, _P] + [_I] * 9 + [_P], _I),
 }
 
 

@@ -12,9 +12,17 @@ Each wrapper runs the kernel for a CUDA tensor and its plain version
 (`*_torch`) for a CPU tensor under ``mode="auto"``; ``mode="torch"`` always
 runs the plain version, ``mode="cuda"`` raises on a CPU tensor.  There is no
 fallback from a failed kernel to the plain version.
+
+A `CoreWindow` restricts a dot to the core cells of a stacked grid of
+haloed blocks (the one-card block mesh, parallel/halo.py): the kernels skip
+the other cells' products, the plain versions mask them.  A CG step over
+such a grid counts in `SHARDED_STEP_LAUNCHES`, apart from the single-device
+`STEP_LAUNCHES`.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
@@ -22,7 +30,43 @@ from geometricmultigridpressuresolver_tpu_torch.ops import _cuda
 from geometricmultigridpressuresolver_tpu_torch.ops.stencil import neighbor_sum_ew
 
 STEP_LAUNCHES = _cuda.LaunchCounter("cg_step")
+SHARDED_STEP_LAUNCHES = _cuda.LaunchCounter("cg_step_sharded")
 RESIDUAL_LAUNCHES = _cuda.LaunchCounter("residual")
+
+
+class CoreWindow(NamedTuple):
+    """The core cells of a stacked block grid: haloed blocks lie one after
+    another along x, `period` rows each; a cell is core when its row within
+    its block is in [lo_x, hi_x) and its y index in [lo_y, hi_y)."""
+
+    period: int
+    lo_x: int
+    hi_x: int
+    lo_y: int
+    hi_y: int
+
+
+def window_args(window: CoreWindow | None, shape) -> tuple[int, ...]:
+    """The kernels' five window ints; None is the full grid."""
+    if window is None:
+        return (int(shape[0]), 0, int(shape[0]), 0, int(shape[1]))
+    return tuple(int(v) for v in window)
+
+
+def window_mask(shape, window: CoreWindow, device=None) -> torch.Tensor:
+    """Boolean (nx, ny, 1) mask of the core cells (broadcasts over z)."""
+    rows = torch.arange(shape[0], device=device) % window.period
+    cols = torch.arange(shape[1], device=device)
+    in_x = (rows >= window.lo_x) & (rows < window.hi_x)
+    in_y = (cols >= window.lo_y) & (cols < window.hi_y)
+    return (in_x[:, None] & in_y[None, :])[:, :, None]
+
+
+def masked_sum(v: torch.Tensor, window: CoreWindow | None) -> torch.Tensor:
+    """sum(v) over the core cells (all cells without a window)."""
+    if window is None:
+        return torch.sum(v)
+    return torch.sum(torch.where(window_mask(v.shape, window, v.device), v, torch.zeros_like(v)))
 
 
 def sum_partials(partials: torch.Tensor) -> torch.Tensor:
@@ -49,22 +93,25 @@ def num_partials(shape) -> int:
     return max(1, (n + bs - 1) // bs)
 
 
-def search_matvec_dot_torch(z, p, beta, diag, ew0, ew1, ew2):
-    """Plain version: (p', A p', <p', A p'>)."""
+def search_matvec_dot_torch(z, p, beta, diag, ew0, ew1, ew2, window: CoreWindow | None = None):
+    """Plain version: (p', A p', <p', A p'>), the dot over the window's cores."""
     pn = z + beta * p
     ap = diag * pn - neighbor_sum_ew(pn, ew0, ew1, ew2)
-    return pn, ap, torch.sum(pn * ap)
+    return pn, ap, masked_sum(pn * ap, window)
 
 
-def search_matvec_dot(z, p, beta, diag, ew0, ew1, ew2, mode: str = "auto"):
+def search_matvec_dot(
+    z, p, beta, diag, ew0, ew1, ew2, mode: str = "auto", window: CoreWindow | None = None
+):
     """Returns (p', A p', <p', A p'>) with p' = z + beta*p.
 
     `beta` is a 0-d tensor on z's device (the kernel reads it by pointer, so
     the CG loop launches the step without a host read).  Fields share one
-    float dtype; the edge weights may be narrower.
+    float dtype; the edge weights may be narrower.  With `window` the grids
+    are a stacked block grid and the dot runs over its core cells.
     """
     if not _cuda.use_kernel(mode, z):
-        return search_matvec_dot_torch(z, p, beta, diag, ew0, ew1, ew2)
+        return search_matvec_dot_torch(z, p, beta, diag, ew0, ew1, ew2, window)
     what = "search_matvec_dot"
     beta = torch.as_tensor(beta, dtype=z.dtype, device=z.device).reshape(())
     _cuda.check_cuda_operands(what, z.shape, z=z, p=p, diag=diag, ew0=ew0, ew1=ew1, ew2=ew2)
@@ -81,11 +128,11 @@ def search_matvec_dot(z, p, beta, diag, ew0, ew1, ew2, mode: str = "auto"):
             _cuda.ptr(z), _cuda.ptr(p), _cuda.ptr(beta), _cuda.ptr(diag),
             _cuda.ptr(ew0), _cuda.ptr(ew1), _cuda.ptr(ew2),
             _cuda.ptr(p_out), _cuda.ptr(ap_out), _cuda.ptr(partials),
-            nx, ny, nz, _cuda.stream_of(z),
+            nx, ny, nz, *window_args(window, z.shape), _cuda.stream_of(z),
         ),
         "gmg_cg_step",
     )
-    STEP_LAUNCHES.count += 1
+    (STEP_LAUNCHES if window is None else SHARDED_STEP_LAUNCHES).count += 1
     return p_out, ap_out, sum_partials(partials)
 
 

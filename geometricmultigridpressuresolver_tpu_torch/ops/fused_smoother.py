@@ -20,7 +20,11 @@ cells up to rounding, because inv_diag*diag = 1 there.
 Variants: `x_is_zero` (the downstroke's zero start: x is not read),
 `emit_residual` (also return r = b - A x' from a residual launch on x'),
 `emit_dot` (also return <x', b> reduced in a fixed order in the compute
-dtype; the CG rho on the fine upstroke).
+dtype; the CG rho on the fine upstroke).  The block-mesh smoother
+(parallel/fused_sharded.py) runs the same passes over a stacked grid of
+haloed blocks: it names the pass list (`schedule`, a chunk of at most H
+passes) and the core window of the dot (`window`), and those passes count
+in `SHARDED_LAUNCHES`.
 
 The kernel is one launch per pass, one thread per cell, z fastest.  It is
 bound by device memory: about 23 B/cell per pass with bf16 edge weights, so
@@ -76,6 +80,7 @@ from geometricmultigridpressuresolver_tpu_torch.ops.stencil import (
 PASS_LAUNCHES = _cuda.LaunchCounter("smoother")
 NARROW_LAUNCHES = _cuda.LaunchCounter("smoother_bf16")
 BAND_LAUNCHES = _cuda.LaunchCounter("band_pass")
+SHARDED_LAUNCHES = _cuda.LaunchCounter("smoother_sharded")
 
 NARROW_DTYPE = torch.bfloat16
 # Halo depth H of the Pallas kernel: its pass stack runs in chunks of at
@@ -271,12 +276,14 @@ def _prepare(b, c: LevelCoeffs, config, blocks):
 def smooth_level_torch(
     x, b, c: LevelCoeffs, config, forward: bool, emit_dot: bool = False,
     x_is_zero: bool = False, emit_residual: bool = False, blocks: LevelBlocks | None = None,
+    schedule=None, window: fused_cg.CoreWindow | None = None,
 ):
     """Plain version of the pass stack, with the kernel's arithmetic and its
     buffer plan (band-only passes write only the band of their target)."""
     c, blocks, cdt = _prepare(b, c, config, blocks)
     narrow = cdt != b.dtype
-    schedule = schedule_for(config, forward)
+    if schedule is None:
+        schedule = schedule_for(config, forward)
     w = config.jacobi_damping
     bc = b.to(cdt)
     invd = c.inv_diag.to(cdt)
@@ -307,24 +314,28 @@ def smooth_level_torch(
     if emit_residual:
         r = fused_cg.residual_torch(xf, b, c.diag, c.ew0, c.ew1, c.ew2)
     if emit_dot:
-        dot = torch.sum(xf * bc)
+        dot = fused_cg.masked_sum(xf * bc, window)
     return _results(xf.to(b.dtype), r, dot, emit_residual, emit_dot)
 
 
 def smooth_level(
     x, b, c: LevelCoeffs, config, forward: bool, emit_dot: bool = False,
     x_is_zero: bool = False, emit_residual: bool = False, blocks: LevelBlocks | None = None,
+    schedule=None, window: fused_cg.CoreWindow | None = None,
 ):
     """The smoothing block of one level; see the module docstring.
 
     Returns x', or a tuple (x', [r], [dot]) with the requested extras; x'
     and r are stored like b.  With `x_is_zero` the argument `x` is ignored
     (it may be None).  The input x is never modified.  `blocks` are the
-    level's `LevelBlocks` (built here when None).
+    level's `LevelBlocks` (built here when None).  `schedule` overrides the
+    pass list of `config` and `forward`; `window` marks a stacked block grid
+    and restricts the dot to its cores.
     """
     if not _cuda.use_kernel(config.kernel_mode, b):
         return smooth_level_torch(
-            x, b, c, config, forward, emit_dot, x_is_zero, emit_residual, blocks
+            x, b, c, config, forward, emit_dot, x_is_zero, emit_residual, blocks,
+            schedule, window,
         )
     what = "smooth_level"
     c, blocks, cdt = _prepare(b, c, config, blocks)
@@ -348,7 +359,10 @@ def smooth_level(
         _cuda.check_cuda_operands(what, (cells.numel(),), band_cells=cells)
         if cells.dtype != torch.int32:
             raise TypeError(f"{what}: band cells must be int32, got {cells.dtype}")
-    plan = pass_plan(schedule_for(config, forward), cells is not None, emit_dot or narrow)
+    if schedule is None:
+        schedule = schedule_for(config, forward)
+    plan = pass_plan(schedule, cells is not None, emit_dot or narrow)
+    counter = SHARDED_LAUNCHES if window is not None else NARROW_LAUNCHES if narrow else PASS_LAUNCHES
     partials = (
         torch.empty(fused_cg.num_partials(b.shape), dtype=cdt, device=b.device)
         if emit_dot else None
@@ -375,11 +389,12 @@ def smooth_level(
                 code, color, float(config.jacobi_damping),
                 _cuda.ptr(src), _cuda.ptr(x_out), _cuda.ptr(x_store), _cuda.ptr(b),
                 _cuda.ptr(c.inv_diag), _cuda.ptr(c.ew0), _cuda.ptr(c.ew1), _cuda.ptr(c.ew2),
-                _cuda.ptr(c.band), nx, ny, nz, _cuda.ptr(partials if last else None), stream,
+                _cuda.ptr(c.band), nx, ny, nz, _cuda.ptr(partials if last else None),
+                *fused_cg.window_args(window, b.shape), stream,
             ),
             f"gmg_smooth_pass({step.kind})",
         )
-        (NARROW_LAUNCHES if narrow else PASS_LAUNCHES).count += 1
+        counter.count += 1
     xf = bufs.get(plan[-1].dst)
     r = dot = None
     if emit_residual:

@@ -10,11 +10,17 @@
     adjoint GS ordering on the upstroke, 4x trilinear prolongation, and a
     smoothing-only cycle when the hierarchy has one level.
   * hierarchy_block_lists: each smoothed level's solve-invariant smoother
-    data (band-cell list, narrowed coefficients), built once per solve.
+    data (band-cell list, narrowed coefficients, or a sharded level's
+    stacked haloed coefficients), built once per solve.
+  * level_flags: with a block mesh (`parallel.mesh.BlockMesh`), which
+    levels run the block-mesh smoother (`parallel.fused_sharded`).
 
-Every smoothed level runs the smoother kernel on the card: the kernel takes
-any shape, so there is no per-level eligibility gate -- and with
-`config.mg_field_dtype` every smoothed level stores its fields narrow.
+Without a mesh every smoothed level runs the single-device smoother kernel
+on the card: it takes any shape, so there is no eligibility gate -- and
+with `config.mg_field_dtype` every smoothed level stores its fields narrow.
+With a mesh, a level is "sharded" where the mesh splits it and
+`sharded_eligible` holds (JAX mg.py:666-726); sharded levels keep the mg
+dtype, the others narrow as before (JAX mg.py:807-812).
 """
 
 from __future__ import annotations
@@ -24,11 +30,14 @@ from typing import NamedTuple, Sequence
 import numpy as np
 import torch
 
+from geometricmultigridpressuresolver_tpu_torch import device as device_mod
 from geometricmultigridpressuresolver_tpu_torch.config import SolverConfig
 from geometricmultigridpressuresolver_tpu_torch.grids import is_solvable
 from geometricmultigridpressuresolver_tpu_torch.models import assembled
 from geometricmultigridpressuresolver_tpu_torch.ops import domain as domain_ops
 from geometricmultigridpressuresolver_tpu_torch.ops import fused_cg, fused_smoother, stencil, transfer
+from geometricmultigridpressuresolver_tpu_torch.parallel import fused_sharded
+from geometricmultigridpressuresolver_tpu_torch.parallel.mesh import grid_split
 
 # Largest bucketed coarse system solved through an explicit dense inverse
 # (one matmul per cycle); bigger systems use a Cholesky factor.
@@ -121,14 +130,15 @@ def build_hierarchy(
     device=None,
 ) -> MGHierarchy:
     """Hierarchy from expanded and relabeled finest labels (+ finest weights),
-    built on `device` (default: the labels' device, CPU for numpy input)."""
+    built on `device` (default: the labels' device if they are a tensor,
+    else the card)."""
     if config is None:
         config = SolverConfig()
     dtype = config.mg_dtype_resolved
     target_levels = mg_levels
     if config.max_mg_levels is not None:
         target_levels = min(target_levels, config.max_mg_levels)
-    dev = _device_of(labels, device)
+    dev = device_mod.of(labels, device)
     cur = torch.as_tensor(labels, device=dev).to(torch.int8)
     fw = None if face_weights is None else tuple(
         torch.as_tensor(w, dtype=dtype, device=dev) for w in face_weights
@@ -137,14 +147,6 @@ def build_hierarchy(
         cur, fw, target_levels, config.boundary_width, dtype, config.mg_ew_dtype
     )
     return _finish_hierarchy(levels, flags, label_levels, config, validate=validate, host_fw=fw)
-
-
-def _device_of(arr, device) -> torch.device:
-    if device is not None:
-        return torch.device(device)
-    if isinstance(arr, torch.Tensor):
-        return arr.device
-    return torch.device("cpu")
 
 
 def _finish_hierarchy(
@@ -228,9 +230,10 @@ def smoothed_levels(hier: MGHierarchy) -> range:
 
 
 def field_dtype(hier: MGHierarchy, config: SolverConfig) -> torch.dtype:
-    """Storage dtype of the smoothed levels' fields (mg.py:794-812 of the
-    JAX package): `config.mg_field_dtype` on a float32 V-cycle whose
-    downstroke can fuse its residual, else the hierarchy's dtype."""
+    """Storage dtype of the single-device smoothed levels' fields
+    (mg.py:794-812 of the JAX package): `config.mg_field_dtype` on a
+    float32 V-cycle whose downstroke can fuse its residual, else the
+    hierarchy's dtype."""
     dtype = hier.levels[0].diag.dtype
     if (
         config.mg_field_dtype is not None
@@ -241,16 +244,53 @@ def field_dtype(hier: MGHierarchy, config: SolverConfig) -> torch.dtype:
     return dtype
 
 
-def hierarchy_block_lists(hier: MGHierarchy, config: SolverConfig):
-    """Per-level solve-invariant smoother data (`ops.fused_smoother.LevelBlocks`)
-    of the smoothed levels, None for the coarsest.  A CG loop builds this
-    once and passes it to every `v_cycle`."""
+def level_flags(hier: MGHierarchy, config: SolverConfig, mesh=None) -> tuple[str, ...]:
+    """Per level, "sharded" (the block-mesh smoother) or "single" (the
+    single-device smoother on the global tensor): "sharded" where `mesh`
+    splits the level and `sharded_eligible` holds (JAX mg.py:707-722).
+    Without a mesh, or on a one-block mesh, every level is "single"."""
+    if mesh is None or mesh.size == 1:
+        return ("single",) * hier.num_levels
+    nlev = hier.num_levels
+    flags = []
+    for level, c in enumerate(hier.levels):
+        split = grid_split(mesh, c.shape)
+        sharded = any(split) and fused_sharded.sharded_eligible(c.shape, split, mesh, level, nlev)
+        flags.append("sharded" if sharded else "single")
+    return tuple(flags)
+
+
+def level_field_dtypes(hier: MGHierarchy, config: SolverConfig, flags) -> tuple[torch.dtype, ...]:
+    """Storage dtype of each level's fields: `field_dtype` on single-device
+    smoothed levels, the hierarchy's dtype on sharded levels and on the
+    coarsest (directly solved) level."""
+    dtype = hier.levels[0].diag.dtype
     fdt = field_dtype(hier, config)
     smoothed = smoothed_levels(hier)
     return tuple(
-        fused_smoother.level_blocks(c, config, fdt) if level in smoothed else None
-        for level, c in enumerate(hier.levels)
+        fdt if level in smoothed and flag == "single" else dtype
+        for level, flag in enumerate(flags)
     )
+
+
+def hierarchy_block_lists(hier: MGHierarchy, config: SolverConfig, mesh=None):
+    """Per-level solve-invariant smoother data of the smoothed levels:
+    `ops.fused_smoother.LevelBlocks` on single-device levels, the stacked
+    haloed coefficients (`fused_sharded.prehalo_coeffs`) on sharded ones,
+    None for the coarsest.  A CG loop builds this once and passes it to
+    every `v_cycle` (JAX mg.py:729-768)."""
+    flags = level_flags(hier, config, mesh)
+    fdts = level_field_dtypes(hier, config, flags)
+    smoothed = smoothed_levels(hier)
+    out = []
+    for level, c in enumerate(hier.levels):
+        if level not in smoothed:
+            out.append(None)
+        elif flags[level] == "sharded":
+            out.append(fused_sharded.prehalo_coeffs(c, mesh, config.kernel_mode))
+        else:
+            out.append(fused_smoother.level_blocks(c, config, fdts[level]))
+    return tuple(out)
 
 
 def v_cycle(
@@ -261,30 +301,38 @@ def v_cycle(
     use_initial_guess: bool = False,
     emit_fine_dot: bool = False,
     block_lists=None,
+    mesh=None,
 ):
     """One V(1,1) multigrid cycle; returns the updated solution grid, or
     (x, <x, b>) with `emit_fine_dot` (the CG rho when b is the CG residual).
 
     Without `use_initial_guess` the cycle starts from x = 0 and `x` may be
-    None.  The smoothed levels store their fields as `field_dtype` (the
-    transfers run in torch on those fields); the coarse solve runs in the
-    hierarchy's dtype, and so does the returned x.
+    None.  The single-device smoothed levels store their fields as
+    `field_dtype` (the transfers run in torch on those fields); sharded
+    levels (with a block `mesh`, `level_flags`), the coarse solve and the
+    returned x are in the hierarchy's dtype.  `block_lists` must come from
+    `hierarchy_block_lists` with the same mesh.
     """
     if config is None:
         config = SolverConfig()
     dtype = hier.levels[0].diag.dtype
-    fdt = field_dtype(hier, config)
     nlev = hier.num_levels
-    smoothed = smoothed_levels(hier)
+    flags = level_flags(hier, config, mesh)
+    vdt = level_field_dtypes(hier, config, flags)
 
-    def vdt(level):
-        return fdt if level in smoothed else dtype
-
-    b = b.to(fdt)
+    b = b.to(vdt[0])
     if use_initial_guess:
-        x = x.to(fdt)
+        x = x.to(vdt[0])
     if block_lists is None:
-        block_lists = hierarchy_block_lists(hier, config)
+        block_lists = hierarchy_block_lists(hier, config, mesh)
+
+    def smooth(level, xl, rhs_l, forward, **kw):
+        c = hier.levels[level]
+        if flags[level] == "sharded":
+            return fused_sharded.smooth_level_sharded(
+                xl, rhs_l, c, config, forward, mesh, prehaloed=block_lists[level], **kw
+            )
+        return fused_smoother.smooth_level(xl, rhs_l, c, config, forward, blocks=block_lists[level], **kw)
 
     def finish(out):
         # The caller gets the hierarchy dtype whatever the field storage.
@@ -294,42 +342,35 @@ def v_cycle(
 
     if nlev == 1:
         # Single-level cycle is smoothing-only.
-        return finish(fused_smoother.smooth_level(
-            x, b, hier.levels[0], config, forward=True, emit_dot=emit_fine_dot,
-            x_is_zero=not use_initial_guess, blocks=block_lists[0],
-        ))
+        return finish(smooth(0, x, b, True, emit_dot=emit_fine_dot, x_is_zero=not use_initial_guess))
 
     # Downstroke.  Every level but a warm-started finest one enters with
-    # x == 0: the smoother then skips reading x and emits the residual.
+    # x == 0: the smoother then skips reading x and emits the residual
+    # (a sharded level only where the ring budget allows it, as in JAX
+    # mg.py:853-858).
     rhs = [b] + [None] * (nlev - 1)
     sols = [None] * nlev
     for level in range(nlev - 1):
         c = hier.levels[level]
-        if level > 0 or not use_initial_guess:
-            xl, r = fused_smoother.smooth_level(
-                None, rhs[level], c, config, forward=True, x_is_zero=True,
-                emit_residual=True, blocks=block_lists[level],
-            )
+        x_zero = level > 0 or not use_initial_guess
+        fuse = flags[level] == "single" or fused_smoother.residual_fusable(config, forward=True)
+        if x_zero and fuse:
+            xl, r = smooth(level, None, rhs[level], True, x_is_zero=True, emit_residual=True)
         else:
-            xl = fused_smoother.smooth_level(
-                x, rhs[level], c, config, forward=True, blocks=block_lists[level]
-            )
+            xl = smooth(level, None if x_zero else x, rhs[level], True, x_is_zero=x_zero)
             # In the hierarchy's dtype, as the JAX package forms it here.
             r = fused_cg.residual(
                 xl.to(dtype), rhs[level].to(dtype), c.diag, c.ew0, c.ew1, c.ew2,
                 mode=config.kernel_mode,
             )
         sols[level] = xl
-        rhs[level + 1] = transfer.restrict(r, hier.levels[level + 1].solvable).to(vdt(level + 1))
+        rhs[level + 1] = transfer.restrict(r, hier.levels[level + 1].solvable).to(vdt[level + 1])
 
     sols[nlev - 1] = coarse_solve(hier, rhs[nlev - 1])
 
     # Upstroke with adjoint smoother ordering.
     for level in range(nlev - 2, -1, -1):
         c = hier.levels[level]
-        xl = transfer.prolong_add(sols[level], sols[level + 1].to(vdt(level)), c.solvable)
-        sols[level] = fused_smoother.smooth_level(
-            xl, rhs[level], c, config, forward=False,
-            emit_dot=emit_fine_dot and level == 0, blocks=block_lists[level],
-        )
+        xl = transfer.prolong_add(sols[level], sols[level + 1].to(vdt[level]), c.solvable)
+        sols[level] = smooth(level, xl, rhs[level], False, emit_dot=emit_fine_dot and level == 0)
     return finish(sols[0])

@@ -5,7 +5,11 @@ the V-cycle in `config.mg_dtype` (a fixed lower-precision preconditioner is
 still a fixed symmetric operator).  `solve` always uses the fused CG
 driver: every iteration is one `ops.fused_cg.search_matvec_dot` step plus
 one V-cycle whose fine upstroke emits rho.  On CUDA tensors these are the
-hand-written kernels; on CPU tensors their plain versions.
+hand-written kernels; on CPU tensors their plain versions.  With a block
+mesh (`solve(..., mesh=)`, `parallel.mesh.BlockMesh`) the V-cycle runs the
+block-mesh smoother on the levels it flags "sharded", and when the fine
+level is one of them the CG step is `parallel.fused_sharded.cg_step_sharded`
+(JAX mgpcg.py:173-193).
 """
 
 from __future__ import annotations
@@ -14,8 +18,10 @@ from typing import NamedTuple, Sequence
 
 import torch
 
+from geometricmultigridpressuresolver_tpu_torch import device as device_mod
 from geometricmultigridpressuresolver_tpu_torch.config import SolverConfig
 from geometricmultigridpressuresolver_tpu_torch.ops import fused_cg, stencil
+from geometricmultigridpressuresolver_tpu_torch.parallel import fused_sharded
 from geometricmultigridpressuresolver_tpu_torch.solver import cg as cg_mod
 from geometricmultigridpressuresolver_tpu_torch.solver import mg as mg_mod
 
@@ -48,14 +54,15 @@ def build_problem(
     device=None,
 ) -> PoissonProblem:
     """Problem from expanded and relabeled labels (+ finest weights), built
-    on `device` (default: the labels' device, CPU for numpy input)."""
+    on `device` (default: the labels' device if they are a tensor, else the
+    card)."""
     if config is None:
         config = SolverConfig()
     dtype, fine_dtype, fine_full = fine_plan(config)
     target_levels = mg_levels
     if config.max_mg_levels is not None:
         target_levels = min(target_levels, config.max_mg_levels)
-    dev = mg_mod._device_of(labels, device)
+    dev = device_mod.of(labels, device)
     lab = torch.as_tensor(labels, device=dev).to(torch.int8)
     fw = None if face_weights is None else tuple(
         torch.as_tensor(w, dtype=config.solve_dtype, device=dev) for w in face_weights
@@ -98,34 +105,46 @@ def solve(
     rhs: torch.Tensor,
     x0: torch.Tensor | None = None,
     config: SolverConfig | None = None,
+    mesh=None,
 ) -> cg_mod.CGResult:
     """MGPCG solve of the dimensionless Poisson system over solvable cells,
-    on the device that holds `problem` and `rhs`."""
+    on the device that holds `problem` and `rhs`; `mesh` (a one-card
+    `BlockMesh` on that device) runs the sharded levels block by block."""
     if config is None:
         config = SolverConfig()
     fine = problem.fine
     sd = config.solve_dtype
     mg_dtype = config.mg_dtype_resolved
+    if mesh is not None:
+        fused_sharded.check_device(mesh, rhs)
 
-    def step_p(z, p, beta):
-        return fused_cg.search_matvec_dot(
-            z, p, beta, fine.diag, fine.ew0, fine.ew1, fine.ew2, mode=config.kernel_mode
-        )
+    if mg_mod.level_flags(problem.hier, config, mesh)[0] == "sharded":
+        # The operator's stacked haloed blocks: once per solve.
+        fine_halo = fused_sharded.prehalo_cg_coeffs(fine, mesh, config.kernel_mode)
+
+        def step_p(z, p, beta):
+            return fused_sharded.cg_step_sharded(z, p, beta, fine, config, mesh, prehaloed_cg=fine_halo)
+    else:
+        def step_p(z, p, beta):
+            return fused_cg.search_matvec_dot(
+                z, p, beta, fine.diag, fine.ew0, fine.ew1, fine.ew2, mode=config.kernel_mode
+            )
 
     preconditioner_dot = None
     if config.use_mg_preconditioner:
-        # Band-cell lists and narrowed coefficients: once per solve.
-        blocks = mg_mod.hierarchy_block_lists(problem.hier, config)
+        # Band-cell lists, narrowed coefficients and sharded levels' stacked
+        # coefficients: once per solve.
+        blocks = mg_mod.hierarchy_block_lists(problem.hier, config, mesh)
 
         def preconditioner(r):
             return mg_mod.v_cycle(
-                problem.hier, None, r.to(mg_dtype), config, block_lists=blocks
+                problem.hier, None, r.to(mg_dtype), config, block_lists=blocks, mesh=mesh
             ).to(sd)
 
         def preconditioner_dot(r):
             z, rho = mg_mod.v_cycle(
                 problem.hier, None, r.to(mg_dtype), config, emit_fine_dot=True,
-                block_lists=blocks,
+                block_lists=blocks, mesh=mesh,
             )
             return z.to(sd), rho
     else:

@@ -59,7 +59,7 @@ def hier32(domain32):
         "coarse_dofs": np.asarray(jh.coarse_dofs),
         "coarse_minv": np.asarray(jh.coarse_minv),
         "coarse_chol": np.asarray(jh.coarse_chol),
-    })
+    }, device="cpu")
     c = jh.levels[0]
     rng = np.random.default_rng(7)
     solv = np.asarray(c.solvable)
@@ -162,7 +162,7 @@ def test_band_strip_vcycle_matches_jax_jnp(domain32):
         "coarse_dofs": np.asarray(jh64.coarse_dofs),
         "coarse_minv": np.asarray(jh64.coarse_minv),
         "coarse_chol": np.asarray(jh64.coarse_chol),
-    })
+    }, device="cpu")
     solv = np.asarray(jh64.levels[0].solvable)
     rhs = np.where(solv, rng.standard_normal(solv.shape), 0.0)
     ref = jax_mg.v_cycle(jh64, jnp.zeros_like(jnp.asarray(rhs)), jnp.asarray(rhs), JaxConfig())
@@ -238,8 +238,8 @@ def test_field_dtype_gates():
     can emit its residual (the JAX package's residual_fusable gate)."""
     labels, weights, mg_levels = helpers.expanded_domain(helpers.sine_dirichlet_domain, 16)
     bf = torch.bfloat16
-    h32 = mg.build_hierarchy(labels, weights, mg_levels, SolverConfig(solve_dtype=torch.float32))
-    h64 = mg.build_hierarchy(labels, weights, mg_levels, SolverConfig())
+    h32 = mg.build_hierarchy(labels, weights, mg_levels, SolverConfig(solve_dtype=torch.float32), device="cpu")
+    h64 = mg.build_hierarchy(labels, weights, mg_levels, SolverConfig(), device="cpu")
     assert mg.field_dtype(h32, SolverConfig(mg_field_dtype=bf)) == bf
     assert mg.field_dtype(h64, SolverConfig(mg_field_dtype=bf)) == torch.float64
     assert mg.field_dtype(h32, SolverConfig()) == torch.float32
@@ -268,7 +268,7 @@ def test_bf16_field_solve_matches_jax_iterations(domain32):
     )
     tcfg = SolverConfig(solve_dtype=torch.float32, mg_field_dtype=torch.bfloat16)
     tres = mgpcg.solve(
-        mgpcg.build_problem(labels, weights, mg_levels, tcfg), torch.from_numpy(rhs), config=tcfg
+        mgpcg.build_problem(labels, weights, mg_levels, tcfg, device="cpu"), torch.from_numpy(rhs), config=tcfg
     )
     assert tres.converged and tres.relative_residual <= 1e-5
     assert abs(tres.iterations - int(jres.iterations)) <= 1

@@ -36,7 +36,7 @@ def _fixture(dtype, bf16_ew=False):
     solv = np.asarray(c.solvable)
     z = np.where(solv, rng.standard_normal(c.shape), 0.0).astype(dtype)
     p = np.where(solv, rng.standard_normal(c.shape), 0.0).astype(dtype)
-    ct = interop.level_from_arrays({f: np.asarray(getattr(c, f)) for f in c._fields})
+    ct = interop.level_from_arrays({f: np.asarray(getattr(c, f)) for f in c._fields}, device="cpu")
     return c, ct, z, p
 
 

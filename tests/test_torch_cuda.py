@@ -21,11 +21,13 @@ import numpy as np
 import pytest
 import torch
 
+from geometricmultigridpressuresolver_tpu_torch import parallel
 from geometricmultigridpressuresolver_tpu_torch.config import SolverConfig
 from geometricmultigridpressuresolver_tpu_torch.models import free_surface, sdf, simulate
 from geometricmultigridpressuresolver_tpu_torch.grids import face_shape
 from geometricmultigridpressuresolver_tpu_torch.ops import domain, fused_cg, fused_smoother
-from geometricmultigridpressuresolver_tpu_torch.solver import mg
+from geometricmultigridpressuresolver_tpu_torch.parallel import fused_sharded, halo
+from geometricmultigridpressuresolver_tpu_torch.solver import mg, mgpcg
 
 pytestmark = pytest.mark.cuda
 
@@ -232,6 +234,124 @@ def test_bf16_residual_kernel_matches_plain(device):
     want = fused_cg.residual_torch(x, bh, c.diag, c.ew0, c.ew1, c.ew2)
     assert got.dtype == want.dtype == torch.bfloat16
     assert float((got.double() - want.double()).abs().max()) <= _bf16_bound(want)
+
+
+def _sharded_level(device, dtype, ew_dtype):
+    """Level 0 of the 32^3 sine fixture (64, 64, 64) on a (2, 2, 1) block
+    mesh of the card: 32 x 32 cores."""
+    c, x, b, cfg = _level(device, dtype, ew_dtype)
+    mesh = parallel.make_mesh(4, device=device)
+    return c, x, b, cfg, mesh, halo.geometry(mesh, c.shape)
+
+
+@pytest.mark.parametrize("mesh_shape", [(2, 2, 1), (4, 2, 1), (1, 4, 1)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64, torch.bfloat16, torch.int8])
+def test_halo_kernels_match_plain(device, mesh_shape, dtype):
+    gen = torch.Generator(device=device).manual_seed(4)
+    t = torch.randint(-100, 100, (64, 48, 40), generator=gen, device=device).to(dtype)
+    geom = halo.geometry(parallel.BlockMesh(mesh_shape, device), t.shape)
+    before = halo.HALO_LAUNCHES.count
+    got = halo.halo_gather(t, geom)
+    back = halo.core_scatter(got, geom)
+    torch.cuda.synchronize()
+    assert halo.HALO_LAUNCHES.count - before == 2
+    assert got.dtype == dtype and tuple(got.shape) == geom.stacked_shape
+    assert torch.equal(got, halo.halo_gather_torch(t, geom))
+    assert torch.equal(back, t)
+    assert torch.equal(halo.core_scatter(got, geom), halo.core_scatter_torch(got, geom))
+
+
+@pytest.mark.parametrize("dtype, ew_dtype, grid_tol, dot_tol", CASES)
+def test_core_window_kernels_match_plain(device, dtype, ew_dtype, grid_tol, dot_tol):
+    """The smoother and CG step over a stacked grid with the core window:
+    kernel vs plain, and the windowed dot is the cores' dot."""
+    c, x, b, cfg, mesh, geom = _sharded_level(device, dtype, ew_dtype)
+    hc = fused_sharded.prehalo_coeffs(c, mesh)
+    xh, bh = halo.halo_gather(x, geom), halo.halo_gather(b, geom)
+    full = fused_smoother.LevelBlocks(None, None)
+    before = fused_smoother.SHARDED_LAUNCHES.count
+    got = fused_smoother.smooth_level(xh, bh, hc, cfg, False, emit_dot=True, blocks=full, window=geom.window)
+    torch.cuda.synchronize()
+    assert fused_smoother.SHARDED_LAUNCHES.count - before == len(fused_smoother.schedule_for(cfg, False))
+    want = fused_smoother.smooth_level_torch(xh, bh, hc, cfg, False, emit_dot=True, blocks=full, window=geom.window)
+    assert _rel(got[0], want[0]) <= grid_tol and _rel(got[1], want[1]) <= dot_tol
+    cores = halo.core_scatter(got[0], geom)
+    assert _rel(got[1], torch.sum(cores * b)) <= dot_tol
+    beta = torch.tensor(0.37, dtype=dtype, device=device)
+    hcg = fused_sharded.prehalo_cg_coeffs(c, mesh)
+    before = fused_cg.SHARDED_STEP_LAUNCHES.count, fused_cg.STEP_LAUNCHES.count
+    got = fused_cg.search_matvec_dot(xh, bh, beta, *hcg, mode="cuda", window=geom.window)
+    torch.cuda.synchronize()
+    assert fused_cg.SHARDED_STEP_LAUNCHES.count - before[0] == 1
+    assert fused_cg.STEP_LAUNCHES.count == before[1]
+    want = fused_cg.search_matvec_dot_torch(xh, bh, beta, *hcg, window=geom.window)
+    assert _rel(got[0], want[0]) <= grid_tol and _rel(got[1], want[1]) <= grid_tol
+    assert _rel(got[2], want[2]) <= dot_tol
+
+
+@pytest.mark.parametrize("dtype, ew_dtype, grid_tol, dot_tol", CASES)
+@pytest.mark.parametrize("variant", ["down", "up_dot", "warm"])
+def test_sharded_block_matches_single_device_kernel(device, dtype, ew_dtype, grid_tol, dot_tol, variant):
+    c, x, b, cfg, mesh, _ = _sharded_level(device, dtype, ew_dtype)
+    kw = {
+        "down": dict(forward=True, x_is_zero=True, emit_residual=True),
+        "up_dot": dict(forward=False, emit_dot=True),
+        "warm": dict(forward=True),
+    }[variant]
+    xin = None if kw.get("x_is_zero") else x
+    got = fused_sharded.smooth_level_sharded(xin, b, c, cfg, mesh=mesh, **kw)
+    single = fused_smoother.smooth_level(xin, b, c, cfg, **kw)
+    plain = fused_sharded.smooth_level_sharded(
+        xin, b, c, SolverConfig(solve_dtype=dtype, mg_ew_dtype=ew_dtype, kernel_mode="torch"),
+        mesh=mesh, **kw,
+    )
+    torch.cuda.synchronize()
+    got, single, plain = (v if isinstance(v, tuple) else (v,) for v in (got, single, plain))
+    for g, s, p in zip(got, single, plain):
+        tol = grid_tol if g.dim() else dot_tol
+        assert _rel(g, s) <= tol and _rel(g, p) <= tol
+    beta = torch.tensor(0.61, dtype=dtype, device=device)
+    got = fused_sharded.cg_step_sharded(x, b, beta, c, cfg, mesh)
+    want = fused_cg.search_matvec_dot(x, b, beta, c.diag, c.ew0, c.ew1, c.ew2, mode="cuda")
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert _rel(g, w) <= (grid_tol if g.dim() else dot_tol)
+
+
+def test_sharded_wrappers_refuse_bad_operands(device):
+    c, x, b, cfg, mesh, geom = _sharded_level(device, torch.float32, None)
+    with pytest.raises(TypeError, match="unsupported dtype"):
+        halo.halo_gather(x.to(torch.int32), geom)
+    with pytest.raises(ValueError, match="not contiguous"):
+        halo.halo_gather(x.transpose(0, 1), geom)
+    with pytest.raises(ValueError, match="shape"):
+        halo.core_scatter(x, geom)
+    with pytest.raises(ValueError, match="odd core extent"):
+        halo.geometry(mesh, (66, 64, 64))
+    xh = halo.halo_gather(x, geom)
+    bad = fused_cg.CoreWindow(0, 0, 1, 0, 1)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        fused_cg.search_matvec_dot(xh, xh, 0.5, *fused_sharded.prehalo_cg_coeffs(c, mesh), mode="cuda", window=bad)
+    with pytest.raises(ValueError, match="block mesh is on"):
+        mgpcg.solve(mgpcg.build_problem(*_sine_domain(), cfg, device=device), b.cpu(), config=cfg, mesh=mesh)
+
+
+def test_sharded_projection_matches_single_device_fp64(device):
+    """The 40^3 splash (window (48, 48, 48)): L0 runs on the block mesh."""
+    n = 40
+    phi, velocity = sdf.splash_scene((n, n, n), device=device)
+    cfg = SolverConfig(tolerance=1e-9)
+    setup = free_surface.build_setup(phi, sdf.open_box_weights((n, n, n), device=device), config=cfg)
+    mesh = parallel.make_mesh(4, device=device)
+    assert mg.level_flags(setup.problem.hier, cfg, mesh)[0] == "sharded"
+    for counter in (fused_smoother.SHARDED_LAUNCHES, fused_cg.SHARDED_STEP_LAUNCHES, halo.HALO_LAUNCHES):
+        counter.reset()
+    got = free_surface.project(setup, velocity, config=cfg, mesh=mesh)
+    assert fused_cg.SHARDED_STEP_LAUNCHES.count == got.cg.iterations > 0
+    assert fused_smoother.SHARDED_LAUNCHES.count > 0 and halo.HALO_LAUNCHES.count > 0
+    want = free_surface.project(setup, velocity, config=cfg)
+    assert got.cg.iterations == want.cg.iterations
+    assert _rel(got.pressure, want.pressure) <= 1e-10
 
 
 def test_frame_loop_kernels_match_plain_fp64(device):

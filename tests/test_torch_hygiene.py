@@ -14,9 +14,11 @@ import numpy as np
 import pytest
 import torch
 
+from geometricmultigridpressuresolver_tpu_torch import interop
 from geometricmultigridpressuresolver_tpu_torch.config import SolverConfig
 from geometricmultigridpressuresolver_tpu_torch.models import free_surface, sdf
 from geometricmultigridpressuresolver_tpu_torch.ops import _cuda
+from geometricmultigridpressuresolver_tpu_torch.solver import mg
 
 torch.set_num_threads(1)
 
@@ -37,9 +39,9 @@ from geometricmultigridpressuresolver_tpu_torch.config import SolverConfig
 from geometricmultigridpressuresolver_tpu_torch.models import free_surface, sdf
 from geometricmultigridpressuresolver_tpu_torch.ops import _cuda
 n = 16
-phi, velocity = sdf.splash_scene((n, n, n))
+phi, velocity = sdf.splash_scene((n, n, n), device="cpu")
 cfg = SolverConfig(tolerance=1e-6)
-setup = free_surface.build_setup(phi, sdf.open_box_weights((n, n, n)), config=cfg)
+setup = free_surface.build_setup(phi, sdf.open_box_weights((n, n, n), device="cpu"), config=cfg)
 result = free_surface.project(setup, velocity, config=cfg)
 assert result.cg.converged and float(result.max_divergence) < 1e-4
 assert "triton" not in sys.modules
@@ -132,9 +134,9 @@ def test_config_defaults_match_reference():
 
 def test_cuda_mode_on_cpu_tensors_raises():
     n = 12
-    phi, velocity = sdf.splash_scene((n, n, n))
+    phi, velocity = sdf.splash_scene((n, n, n), device="cpu")
     cfg = SolverConfig(kernel_mode="cuda")
-    setup = free_surface.build_setup(phi, sdf.open_box_weights((n, n, n)), config=cfg)
+    setup = free_surface.build_setup(phi, sdf.open_box_weights((n, n, n), device="cpu"), config=cfg)
     with pytest.raises(ValueError, match="needs CUDA tensors"):
         free_surface.project(setup, velocity, config=cfg)
 
@@ -152,11 +154,51 @@ def test_kernel_build_is_content_addressed_and_ignored():
         assert flag in _cuda.NVCC_FLAGS
 
 
-def test_interop_carries_bfloat16_bits():
-    from geometricmultigridpressuresolver_tpu_torch import interop
+_NO_CARD_CALLS = {
+    "splash_scene": lambda: sdf.splash_scene((8, 8, 8)),
+    "open_box_weights": lambda: sdf.open_box_weights((8, 8, 8)),
+    "build_setup_numpy": lambda: free_surface.build_setup(
+        np.full((8, 8, 8), -1.0), [np.ones((9, 8, 8)), np.ones((8, 9, 8)), np.ones((8, 8, 9))]
+    ),
+    "build_hierarchy_numpy": lambda: mg.build_hierarchy(np.full((8, 8, 8), 2, np.int8), None, 2),
+    "interop_level": lambda: interop.level_from_arrays(
+        {f: np.zeros((4, 4, 4)) for f in ("solvable", "band", "diag", "inv_diag", "ew0", "ew1", "ew2")}
+    ),
+}
 
+
+@pytest.mark.parametrize("name", list(_NO_CARD_CALLS))
+def test_entry_points_default_to_the_card(monkeypatch, name):
+    """With no card and no device=, an entry point raises and names
+    device='cpu'; it never runs on the CPU quietly."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        _NO_CARD_CALLS[name]()
+
+
+def test_cli_without_card_exits_nonzero(monkeypatch, capsys):
+    from geometricmultigridpressuresolver_tpu_torch.models import simulate
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(SystemExit) as exc:
+        simulate.main(["--n", "8", "--frames", "1"])
+    assert exc.value.code != 0
+    assert "--device cpu" in capsys.readouterr().err
+
+
+def test_tensor_input_keeps_its_device(monkeypatch):
+    """A tensor passed in keeps its device: no card is needed for it."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    phi, velocity = sdf.splash_scene((8, 8, 8), device="cpu")
+    weights = sdf.open_box_weights((8, 8, 8), device="cpu")
+    setup = free_surface.build_setup(phi, weights, config=SolverConfig())
+    assert setup.liquid_phi.device.type == "cpu"
+    assert setup.problem.hier.levels[0].diag.device.type == "cpu"
+
+
+def test_interop_carries_bfloat16_bits():
     ml_dtypes = pytest.importorskip("ml_dtypes")
     values = np.array([1.0, 0.5, -3.25, 1e-3], dtype=np.float32)
-    got = interop.tensor(values.astype(ml_dtypes.bfloat16))
+    got = interop.tensor(values.astype(ml_dtypes.bfloat16), device="cpu")
     assert got.dtype == torch.bfloat16
     assert torch.equal(got, torch.from_numpy(values).to(torch.bfloat16))

@@ -44,7 +44,7 @@ def hier16():
         helpers.sine_dirichlet_domain, 16, fractional=True
     )
     jh = jax_mg.build_hierarchy(labels, weights, mg_levels, JaxConfig())
-    th = interop.hierarchy_from_arrays(_tree(jh))
+    th = interop.hierarchy_from_arrays(_tree(jh), device="cpu")
     rng = np.random.default_rng(5)
     solv = np.asarray(jh.levels[0].solvable)
     x = np.where(solv, rng.standard_normal(solv.shape), 0.0)
@@ -153,7 +153,7 @@ def test_v_cycle_matches_jax(hier16, use_gs):
 @pytest.fixture(scope="module")
 def port_hier16(hier16):
     labels, weights, mg_levels, _, _, _, _ = hier16
-    return labels, mg.build_hierarchy(labels, weights, mg_levels, SolverConfig(), validate=True)
+    return labels, mg.build_hierarchy(labels, weights, mg_levels, SolverConfig(), validate=True, device="cpu")
 
 
 def _sym_check(op, solvable, seed=0):
@@ -172,7 +172,7 @@ def _two_level(use_gs):
         helpers.sine_dirichlet_domain, 16, fractional=True
     )
     config = SolverConfig(use_gauss_seidel=use_gs, max_mg_levels=2)
-    h = mg.build_hierarchy(labels, weights, mg_levels, config)
+    h = mg.build_hierarchy(labels, weights, mg_levels, config, device="cpu")
     assert h.num_levels == 2
     return h, config
 
@@ -215,7 +215,7 @@ def _sym_case(name, labels, hier):
         return op, c.solvable
     if name == "single_level_cycle":
         cfg = SolverConfig(max_mg_levels=1, use_gauss_seidel=False)
-        h1 = mg.build_hierarchy(labels, None, 5, cfg)
+        h1 = mg.build_hierarchy(labels, None, 5, cfg, device="cpu")
         assert h1.num_levels == 1
         return (lambda r: mg.v_cycle(h1, None, r, cfg)), h1.levels[0].solvable
     raise KeyError(name)

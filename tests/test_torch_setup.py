@@ -52,7 +52,7 @@ def splash24():
     phi, velocity = jax_sdf.splash_scene((n, n, n))
     weights = jax_sdf.open_box_weights((n, n, n))
     js = jax_fs.build_setup(phi, weights, config=JaxConfig(), validate=True)
-    ts = free_surface.build_setup(phi, weights, config=SolverConfig(), validate=True)
+    ts = free_surface.build_setup(phi, weights, config=SolverConfig(), validate=True, device="cpu")
     return js, ts
 
 
@@ -85,7 +85,7 @@ def test_solid_sphere_setup_bit_equal():
     weights = jax_sdf.face_weights_from_solid(solid_fn, (n, n, n))
     solid_phi = solid_fn(jax_sdf.cell_centers((n, n, n))[0])
     js = jax_fs.build_setup(phi, weights, solid_phi=solid_phi, config=JaxConfig())
-    ts = free_surface.build_setup(phi, weights, solid_phi=solid_phi, config=SolverConfig())
+    ts = free_surface.build_setup(phi, weights, solid_phi=solid_phi, config=SolverConfig(), device="cpu")
     assert ts.window_start == tuple(int(s) for s in np.asarray(js.window_start))
     assert np.array_equal(ts.material.numpy(), np.asarray(js.material))
     _assert_hierarchy_equal(js.problem.hier, ts.problem.hier)
@@ -100,7 +100,7 @@ def test_bench_dtype_setup_shapes_and_dtypes():
     jc = JaxConfig(solve_dtype=jnp.float32, mg_dtype=jnp.float32, mg_ew_dtype=jnp.bfloat16)
     tc = SolverConfig(solve_dtype=torch.float32, mg_dtype=torch.float32, mg_ew_dtype=torch.bfloat16)
     js = jax_fs.build_setup(phi, weights, config=jc)
-    ts = free_surface.build_setup(phi, weights, config=tc)
+    ts = free_surface.build_setup(phi, weights, config=tc, device="cpu")
     assert ts.expanded_shape == tuple(js.expanded_shape)
     for c in ts.problem.hier.levels:
         assert c.ew0.dtype == torch.bfloat16 and c.diag.dtype == torch.float32
@@ -120,7 +120,7 @@ def fixture32():
 def test_fixture32_hierarchy_bit_equal(fixture32):
     labels, weights, mg_levels = fixture32
     jh = jax_mg.build_hierarchy(labels, weights, mg_levels, JaxConfig())
-    th = mg.build_hierarchy(labels, weights, mg_levels, SolverConfig(), validate=True)
+    th = mg.build_hierarchy(labels, weights, mg_levels, SolverConfig(), validate=True, device="cpu")
     _assert_hierarchy_equal(jh, th)
 
 
@@ -195,10 +195,10 @@ def test_scenes_match_jax(name):
     shape = (12, 10, 14)
     if name == "splash":
         phi_j, vel_j = jax_sdf.splash_scene(shape)
-        phi_t, vel_t = sdf.splash_scene(shape)
+        phi_t, vel_t = sdf.splash_scene(shape, device="cpu")
         pairs = [(phi_t, phi_j)] + list(zip(vel_t, vel_j))
     elif name == "open_box":
-        pairs = list(zip(sdf.open_box_weights(shape), jax_sdf.open_box_weights(shape)))
+        pairs = list(zip(sdf.open_box_weights(shape, device="cpu"), jax_sdf.open_box_weights(shape)))
     else:
         def solid_j(pts):
             return -jax_sdf.sphere_sdf(pts, (0.5, 0.3, 0.5), 0.2)
@@ -207,7 +207,7 @@ def test_scenes_match_jax(name):
             return -sdf.sphere_sdf(pts, (0.5, 0.3, 0.5), 0.2)
 
         pairs = list(zip(
-            sdf.face_weights_from_solid(solid_t, shape),
+            sdf.face_weights_from_solid(solid_t, shape, device="cpu"),
             jax_sdf.face_weights_from_solid(solid_j, shape),
         ))
     for got, want in pairs:

@@ -106,7 +106,7 @@ def test_run_matches_jax_frame_by_frame(name):
     )
     tframes = simulate.run(
         phi, velocity, weights, num_frames=frames, dt=dt, config=SolverConfig(**common),
-        on_frame=lambda k, fr: shapes["port"].append(fr.setup.expanded_shape),
+        on_frame=lambda k, fr: shapes["port"].append(fr.setup.expanded_shape), device="cpu",
     )
     assert len(tframes) == frames
     assert shapes["port"] == shapes["jax"]
@@ -139,27 +139,27 @@ def test_build_setup_reuse_from_matches_jax():
     grown = phi - 0.08   # grows it past the old window
     jcfg, tcfg = JaxConfig(), SolverConfig()
     j0 = jax_fs.build_setup(phi, weights, config=jcfg)
-    t0 = free_surface.build_setup(phi, weights, config=tcfg)
+    t0 = free_surface.build_setup(phi, weights, config=tcfg, device="cpu")
     for new in (moved, grown):
         js = jax_fs.build_setup(new, weights, config=jcfg, reuse_from=j0)
-        ts = free_surface.build_setup(new, weights, config=tcfg, reuse_from=t0)
+        ts = free_surface.build_setup(new, weights, config=tcfg, reuse_from=t0, device="cpu")
         assert ts.expanded_shape == tuple(js.expanded_shape)
         assert ts.window_start == tuple(int(s) for s in np.asarray(js.window_start))
         assert ts.base_pads == tuple(js.base_pads)
-    assert free_surface.build_setup(moved, weights, config=tcfg, reuse_from=t0).expanded_shape == t0.expanded_shape
-    regrown = free_surface.build_setup(grown, weights, config=tcfg, reuse_from=t0)
-    fresh = free_surface.build_setup(grown, weights, config=tcfg)
+    assert free_surface.build_setup(moved, weights, config=tcfg, reuse_from=t0, device="cpu").expanded_shape == t0.expanded_shape
+    regrown = free_surface.build_setup(grown, weights, config=tcfg, reuse_from=t0, device="cpu")
+    fresh = free_surface.build_setup(grown, weights, config=tcfg, device="cpu")
     assert regrown.expanded_shape[0] == fresh.expanded_shape[0] + tcfg.window_slack * fresh.padding
     no_slack = free_surface.build_setup(
-        grown, weights, config=SolverConfig(window_slack=0), reuse_from=t0
+        grown, weights, config=SolverConfig(window_slack=0), reuse_from=t0, device="cpu"
     )
     assert no_slack.expanded_shape == fresh.expanded_shape
 
 
 def test_step_reports_stages_and_reuse():
     n = 16
-    phi, velocity = sdf.splash_scene((n, n, n))
-    weights = sdf.open_box_weights((n, n, n))
+    phi, velocity = sdf.splash_scene((n, n, n), device="cpu")
+    weights = sdf.open_box_weights((n, n, n), device="cpu")
     cfg = SolverConfig(tolerance=1e-6)
     first = simulate.step(phi, velocity, weights, 1.0 / 60.0, config=cfg)
     second = simulate.step(

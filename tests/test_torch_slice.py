@@ -68,9 +68,9 @@ def test_slice_fp64_matches_jax(scene, fp64_runs, source):
     phi, velocity, weights = scene
     js, jr, tcfg = fp64_runs
     if source == "port_setup":
-        ts = free_surface.build_setup(phi, weights, config=tcfg)
+        ts = free_surface.build_setup(phi, weights, config=tcfg, device="cpu")
     else:
-        ts = interop.setup_from_arrays(_tree(js))
+        ts = interop.setup_from_arrays(_tree(js), device="cpu")
     tr = free_surface.project(ts, velocity, config=tcfg)
     assert tr.cg.converged and tr.cg.iterations == int(jr.cg.iterations)
     assert _rel(tr.pressure.numpy(), jr.pressure) < 1e-10
@@ -93,8 +93,8 @@ def test_slice_bench_dtypes_match_jax(scene, source):
     js = jax_fs.build_setup(phi, weights, config=jcfg)
     jr = jax_fs.project(js, velocity, config=jcfg)
     ts = (
-        free_surface.build_setup(phi, weights, config=tcfg)
-        if source == "port_setup" else interop.setup_from_arrays(_tree(js))
+        free_surface.build_setup(phi, weights, config=tcfg, device="cpu")
+        if source == "port_setup" else interop.setup_from_arrays(_tree(js), device="cpu")
     )
     assert ts.problem.hier.levels[0].ew0.dtype == torch.bfloat16
     tr = free_surface.project(ts, velocity, config=tcfg)
@@ -107,7 +107,7 @@ def test_slice_bench_dtypes_match_jax(scene, source):
 def test_warm_start_matches_jax(scene, fp64_runs):
     phi, velocity, weights = scene
     js, jr, tcfg = fp64_runs
-    ts = free_surface.build_setup(phi, weights, config=tcfg)
+    ts = free_surface.build_setup(phi, weights, config=tcfg, device="cpu")
     first = free_surface.project(ts, velocity, config=tcfg)
     warm = free_surface.project(ts, velocity, old_pressure=first.pressure, config=tcfg)
     jwarm = jax_fs.project(js, velocity, old_pressure=jr.pressure, config=JaxConfig(tolerance=1e-7))
@@ -129,7 +129,7 @@ def test_solid_sphere_projection_matches_jax():
     jcfg, tcfg = JaxConfig(tolerance=1e-7), SolverConfig(tolerance=1e-7)
     js = jax_fs.build_setup(phi, weights, solid_phi=solid_phi, config=jcfg)
     jr = jax_fs.project(js, velocity, solid_velocity=solid_velocity, config=jcfg)
-    ts = free_surface.build_setup(phi, weights, solid_phi=solid_phi, config=tcfg)
+    ts = free_surface.build_setup(phi, weights, solid_phi=solid_phi, config=tcfg, device="cpu")
     tr = free_surface.project(ts, velocity, solid_velocity=solid_velocity, config=tcfg)
     assert tr.cg.iterations == int(jr.cg.iterations)
     assert _rel(tr.pressure.numpy(), jr.pressure) < 1e-10
@@ -146,7 +146,7 @@ def test_solvers_match_jax_on_fixture16():
     jcfg, tcfg = JaxConfig(tolerance=1e-8), SolverConfig(tolerance=1e-8, record_residuals=True)
     jp = jax_mgpcg.build_problem(labels, weights, mg_levels, jcfg)
     jres = jax_mgpcg.solve(jp, jnp.asarray(rhs), config=jcfg)
-    tp = mgpcg.build_problem(labels, weights, mg_levels, tcfg, validate=True)
+    tp = mgpcg.build_problem(labels, weights, mg_levels, tcfg, validate=True, device="cpu")
     fused = mgpcg.solve(tp, torch.from_numpy(rhs), config=tcfg)
     assert fused.iterations == int(jres.iterations)
     assert _rel(fused.x.numpy(), jres.x) < 1e-10
@@ -191,12 +191,12 @@ def test_all_neumann_null_space_projection():
 def test_empty_liquid_degrades_gracefully():
     n = 16
     phi = np.full((n, n, n), 1.0)
-    weights = sdf.open_box_weights((n, n, n))
+    weights = sdf.open_box_weights((n, n, n), device="cpu")
     rng = np.random.default_rng(2)
     velocity = tuple(
         rng.standard_normal(tuple(n + (1 if a == ax else 0) for a in range(3))) for ax in range(3)
     )
-    setup = free_surface.build_setup(phi, weights, config=SolverConfig())
+    setup = free_surface.build_setup(phi, weights, config=SolverConfig(), device="cpu")
     assert int(setup.problem.fine.solvable.sum()) == 0
     result = free_surface.project(setup, velocity, config=SolverConfig())
     assert result.cg.iterations == 0 and result.cg.converged
@@ -209,8 +209,8 @@ def test_compact_window_matches_classic_expansion():
     """The compact, lane-aligned window is the same linear system as the
     reference's full-grid power-of-two expansion (compact_domain=False)."""
     n = 20
-    phi, velocity = sdf.splash_scene((n, n, n))
-    weights = sdf.open_box_weights((n, n, n))
+    phi, velocity = sdf.splash_scene((n, n, n), device="cpu")
+    weights = sdf.open_box_weights((n, n, n), device="cpu")
     results = {}
     for compact in (True, False):
         cfg = SolverConfig(tolerance=1e-9, compact_domain=compact)

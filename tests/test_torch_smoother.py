@@ -40,7 +40,7 @@ def _fixture(dtype_jax, seed=7):
     solv = np.asarray(c.solvable)
     x = np.where(solv, rng.standard_normal(c.shape), 0.0).astype(dtype_jax)
     b = np.where(solv, rng.standard_normal(c.shape), 0.0).astype(dtype_jax)
-    return c, interop.level_from_arrays(_level_arrays(c)), x, b
+    return c, interop.level_from_arrays(_level_arrays(c), device="cpu"), x, b
 
 
 @pytest.fixture(scope="module")
