@@ -12,19 +12,27 @@ Phases (any failure exits non-zero and prints no result line):
      (pallas_band_strip=128, the default), tol 1e-5, 200 iterations): the
      port's splash_scene -> build_setup -> project, with every kernel launch
      counter reset just before and read just after; the counts must equal
-     what the hierarchy, the pass plan and the iteration count imply;
+     what the hierarchy, the chunk plan and the iteration count imply; per
+     smoothed level the chunk kernel's depth, tile and active tiles;
   4. each kernel against its plain PyTorch version on random inputs (a
      seeded torch.Generator) on the levels of that hierarchy, with bf16 and
-     fp32 edge weights: the full-grid and band-restricted blocks, the band
-     pass alone, the bf16-field blocks, the CG step and the residual; and
-     each kernel's time beside the plain version's at the fine-level shape;
+     fp32 edge weights: the chunk kernel's blocks (downstroke with zero
+     start and residual, upstroke with and without the dot, warm, Jacobi)
+     in the full-grid and band-restricted configurations, a lone `b` pass,
+     the bf16-field blocks, the CG step and the residual; each kernel's
+     time beside the plain version's at the fine-level shape, the fine
+     upstroke block beside its earlier times and its host time per call,
+     and the block at chunk depths 2, 4 and 8;
   5. the best of 3 solve times (mgpcg.solve, as bench.py times the JAX
-     package) with the kernels, with kernel_mode="torch", with full-grid
-     boundary passes (pallas_band_strip=0) and with bf16 fields
+     package), in turns: with the kernels, with kernel_mode="torch", with
+     full-grid boundary passes (pallas_band_strip=0) and with bf16 fields
      (mg_field_dtype=bfloat16); the projections compared; a bf16-field
-     projection with exact launch counts;
+     projection with exact launch counts; one warm solve under
+     torch.profiler: device time by kernel, the device's busy share and
+     the host ops' time;
   6. a small fp64 projection on the card checked against a direct sparse
-     solve of the assembled system;
+     solve of the assembled system, and the fp64 chunk kernel against its
+     plain version on that hierarchy's smoothed levels;
   7. the frame loop: simulate.run, 4 frames at 256^3 in the CLI's --fp32
      configuration, launch counts exact over the whole run; per frame the
      iterations, residual, divergence, stage seconds and window reuse;
@@ -41,7 +49,10 @@ Phases (any failure exits non-zero and prints no result line):
 Every kernel's entry in the kernels JSON has its launches on its path, its
 error against the plain version, its time, the plain version's, its bound
 (bytes over 3.35 TB/s or float32 operations over 67 TFLOP/s, the larger)
-and the library call's time where one PyTorch call computes the same thing.
+for the work this run's data needs -- inputs read on the solvable cells
+(`bound_ms`, also `bound_active_ms`) -- and over the whole window
+(`bound_window_ms`), and the library call's time where one PyTorch call
+computes the same thing.
 The last lines are the kernels JSON, the nvidia-smi line, and
 {"ok": true, "device": {...}}.
 """
@@ -109,52 +120,51 @@ def bf16_ulp(scale: float) -> float:
 def expected_launches(hier, config, iters: int, warm: bool = False, mesh=None) -> dict:
     """Kernel launches of one projection (project: solve + the recomputed
     residual) with `iters` CG iterations: every V-cycle (iters + 1) runs a
-    downstroke and an upstroke block per smoothed level; `pass_plan` says
-    which passes of each block are band-only.  A warm start adds the
-    initial residual.
+    downstroke (from x = 0, with the residual) and an upstroke block per
+    smoothed level, each one chunk-kernel launch per `chunk_plan` chunk at
+    the level's depth.  A warm start adds the initial residual.
 
     With a block `mesh`, a level that `mg.level_flags` calls "sharded" runs
-    every pass full over its stacked haloed blocks, in chunks of at most H
-    passes: per block, one gather of b, one of x per chunk (none for the
-    downstroke's zero start), one scatter of x per chunk and one of the
-    fused residual.  A sharded fine level runs the CG step there too (two
-    gathers and two scatters per step), and each solve gathers the
-    constant coefficients once (six arrays per sharded level, four for
-    the CG operator)."""
+    over its stacked haloed blocks in chunks of at most H passes, each its
+    own chunk plan at the stacked tiles' depth: per block, one gather of b,
+    one of x per H-chunk (none for the downstroke's zero start), one
+    scatter of x per H-chunk and one of the fused residual; a downstroke
+    whose residual does not fit H launches the residual kernel after it.  A
+    sharded fine level runs the CG step there too (two gathers and two
+    scatters per step), and each solve gathers the constant coefficients
+    once (six arrays per sharded level, four for the CG operator)."""
     import torch
 
     from geometricmultigridpressuresolver_tpu_torch.ops import fused_smoother
     from geometricmultigridpressuresolver_tpu_torch.parallel import halo
     from geometricmultigridpressuresolver_tpu_torch.solver import mg
 
-    blocks = mg.hierarchy_block_lists(hier, config)
+    blocks = mg.hierarchy_block_lists(hier, config, mesh)
     flags = mg.level_flags(hier, config, mesh)
     narrow = mg.field_dtype(hier, config) == torch.bfloat16
     nlev = hier.num_levels
-    full = band = sharded = gathers = 0
+    single = sharded = gathers = unfused = 0
     for level in mg.smoothed_levels(hier):
-        strokes = [(True, nlev == 1)] + ([(False, level == 0)] if nlev > 1 else [])
-        for forward, dot in strokes:
-            schedule = fused_smoother.schedule_for(config, forward)
+        strokes = (True, False) if nlev > 1 else (True,)
+        for forward in strokes:
+            n = len(fused_smoother.schedule_for(config, forward))
+            down = forward and nlev > 1
+            residual = down and (flags[level] == "single" or fused_smoother.residual_fusable(config, True))
+            unfused += down and not residual
             if flags[level] == "sharded":
-                chunks = -(-len(schedule) // halo.H)
-                residual = forward and nlev > 1 and fused_smoother.residual_fusable(config, True)
-                sharded += len(schedule)
-                gathers += 1 + chunks - int(forward) + chunks + int(residual)
-                continue
-            plan = fused_smoother.pass_plan(
-                schedule, blocks[level].band_cells is not None, dot or narrow,
-            )
-            band += sum(step.band_only for step in plan)
-            full += sum(not step.band_only for step in plan)
+                depth = blocks[level][1].tiles.depth
+                outer = fused_smoother.chunk_plan(n, halo.H, forward, residual)
+                sharded += sum(len(fused_smoother.chunk_plan(ch.stop - ch.start, depth)) for ch in outer)
+                gathers += 1 + sum(not ch.zero for ch in outer) + len(outer) + int(residual)
+            else:
+                single += len(fused_smoother.chunk_plan(n, blocks[level].tiles.depth))
     cycles = iters + 1
     fine_sharded = flags[0] == "sharded"
     once = 6 * sum(flags[lv] == "sharded" for lv in mg.smoothed_levels(hier)) + 4 * fine_sharded
     return {
-        "smoother": 0 if narrow else full * cycles,
-        "smoother_bf16": full * cycles if narrow else 0,
-        "band_pass": band * cycles,
-        "residual": (nlev - 1) * cycles + 1 + int(warm),
+        "smoother": 0 if narrow else single * cycles,
+        "smoother_bf16": single * cycles if narrow else 0,
+        "residual": unfused * cycles + 1 + int(warm),
         "cg_step": 0 if fine_sharded else iters,
         "smoother_sharded": sharded * cycles,
         "cg_step_sharded": iters if fine_sharded else 0,
@@ -171,6 +181,21 @@ FP32_OPS_PER_S = 67e12
 
 def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def n_tiles(tiles) -> int:
+    """Tiles of the level a chunk-kernel `Tiles` was built for."""
+    from geometricmultigridpressuresolver_tpu_torch.ops import fused_smoother
+
+    gx, gy, gz = fused_smoother.tile_grid(tiles.shape, tiles.core)
+    return gx * gy * gz
+
+
+def active_bytes(cells: int, inputs, out_cells: int, outputs) -> int:
+    """Bytes a function must move when it reads each input only on the
+    `cells` cells that need it (the solvable ones) and writes each output on
+    all `out_cells`: the work this run's data needs, whatever implements it."""
+    return cells * sum(t.element_size() for t in inputs) + out_cells * sum(t.element_size() for t in outputs)
 
 
 def bound(moved: float, ops: float) -> tuple[float, str]:
@@ -241,7 +266,7 @@ def main(argv=None) -> int:
         tolerance=1e-5, max_iterations=200,
     )
     counters = (
-        fused_smoother.PASS_LAUNCHES, fused_smoother.BAND_LAUNCHES,
+        fused_smoother.PASS_LAUNCHES,
         fused_smoother.NARROW_LAUNCHES, fused_cg.STEP_LAUNCHES, fused_cg.RESIDUAL_LAUNCHES,
         fused_smoother.SHARDED_LAUNCHES, fused_cg.SHARDED_STEP_LAUNCHES, halo.HALO_LAUNCHES,
     )
@@ -277,10 +302,11 @@ def main(argv=None) -> int:
           f"coarse system {tuple((hier.coarse_minv if hier.coarse_minv.numel() else hier.coarse_chol).shape)}")
     blocks = mg.hierarchy_block_lists(hier, config)
     for lv in mg.smoothed_levels(hier):
-        cells = blocks[lv].band_cells
-        nb = 0 if cells is None else cells.numel()
+        tiles = blocks[lv].tiles
+        nb, na, nt = tiles.band.numel(), tiles.active.numel(), n_tiles(tiles)
         print(f"[3] L{lv} {tuple(hier.levels[lv].shape)}: {nb:,} band cells, "
-              f"{nb / hier.levels[lv].diag.numel():.2%} of the level")
+              f"{nb / hier.levels[lv].diag.numel():.2%} of the level; chunk depth {tiles.depth}, "
+              f"tile {tiles.core}, active tiles {na}/{nt} = {na / nt:.3f}")
     print(f"[3] liquid DOFs {ndof:,}; iterations {iters}; relative residual "
           f"{result.cg.relative_residual:.3e}; recomputed {float(result.residual_rel_l2):.3e} "
           f"(linf {float(result.residual_linf):.3e}); max divergence "
@@ -295,7 +321,9 @@ def main(argv=None) -> int:
     expected = expected_launches(hier, config, iters)
     print(f"[3] kernel launches {launches}, expected {expected}")
     require(launches == expected, "launch counts differ from what the hierarchy implies")
-    require(launches["band_pass"] > 0, "the band-restricted pass never ran on the main path")
+    require(launches["smoother"] > 0, "the chunk kernel never ran on the main path")
+    print("[3] band-pass launches: 0 (no such kernel remains; the chunk kernel skips the neighbour "
+          "sum of non-band cells in its b passes)")
 
     # ---- 4. kernels against their plain versions ----------------------------------
     gen = torch.Generator(device=dev).manual_seed(20261016)
@@ -307,7 +335,7 @@ def main(argv=None) -> int:
     grid_tol, dot_tol = 1e-5, 1e-4  # fp32: FMA contraction and summation order
     # bf16 fields: both sides compute in fp32 and round once, so they differ
     # by at most one bf16 ulp at the output's scale (plus the fp32 term).
-    names = ("smoother", "band_pass", "smoother_bf16", "cg_step", "residual",
+    names = ("smoother", "smoother_band_strip", "smoother_bf16", "cg_step", "residual",
              "halo", "smoother_sharded", "cg_step_sharded")
     errs = dict.fromkeys(names, 0.0)      # grids, absolute
     dot_errs = dict.fromkeys(names[:3] + ("cg_step", "smoother_sharded", "cg_step_sharded"), 0.0)  # dots, relative
@@ -333,7 +361,11 @@ def main(argv=None) -> int:
         "up": dict(forward=False),
         "up(emit_dot)": dict(forward=False, emit_dot=True),
         "down(warm)": dict(forward=True),
+        "jacobi(emit_dot)": dict(forward=True, emit_dot=True),
     }
+
+    def case_config(cfg, case):
+        return dataclasses.replace(cfg, use_gauss_seidel=False) if case.startswith("jacobi") else cfg
 
     def as_tuple(v):
         return v if isinstance(v, tuple) else (v,)
@@ -351,10 +383,11 @@ def main(argv=None) -> int:
             for case, kw in cases.items():
                 xx = None if kw.get("x_is_zero") else x
                 key = f"L{lv} {tag} {case}"
+                cfg_b, cfg_f = case_config(config, case), case_config(config_full, case)
                 # Full-grid boundary passes (pallas_band_strip=0) vs plain.
-                got = as_tuple(fused_smoother.smooth_level(xx, b, c, config_full, **kw))
+                got = as_tuple(fused_smoother.smooth_level(xx, b, c, cfg_f, **kw))
                 torch.cuda.synchronize()
-                want = as_tuple(fused_smoother.smooth_level_torch(xx, b, c, config_full, **kw))
+                want = as_tuple(fused_smoother.smooth_level_torch(xx, b, c, cfg_f, **kw))
                 worst[key] = check("smoother", key + " x", got[0], want[0], grid_tol)
                 if kw.get("emit_residual"):
                     check("smoother", key + " r", got[1], want[1], grid_tol)
@@ -362,29 +395,29 @@ def main(argv=None) -> int:
                     check("smoother", key + " dot", got[-1], want[-1], dot_tol)
                 # Band-restricted block vs plain, and vs the full-grid kernel.
                 full_kernel = got
-                got = as_tuple(fused_smoother.smooth_level(xx, b, c, config, blocks=blk, **kw))
+                got = as_tuple(fused_smoother.smooth_level(xx, b, c, cfg_b, blocks=blk, **kw))
                 torch.cuda.synchronize()
-                want = as_tuple(fused_smoother.smooth_level_torch(xx, b, c, config, blocks=blk, **kw))
+                want = as_tuple(fused_smoother.smooth_level_torch(xx, b, c, cfg_b, blocks=blk, **kw))
                 for i, (g, w, fk) in enumerate(zip(got, want, full_kernel)):
-                    check("band_pass", f"{key} [{i}] vs plain", g, w, grid_tol if g.dim() else dot_tol)
+                    check("smoother_band_strip", f"{key} [{i}] vs plain", g, w, grid_tol if g.dim() else dot_tol)
                     band_vs_full = max(band_vs_full, rel_err(g, fk)[1])
                     require(rel_err(g, fk)[1] <= (grid_tol if g.dim() else dot_tol),
                             f"band-restricted block {key} differs from the full-grid kernel")
                 # bf16 fields vs plain.
                 xb = None if xx is None else xx.to(torch.bfloat16)
                 bb = b.to(torch.bfloat16)
-                got = as_tuple(fused_smoother.smooth_level(xb, bb, c, config, blocks=blk_bf16, **kw))
+                got = as_tuple(fused_smoother.smooth_level(xb, bb, c, cfg_b, blocks=blk_bf16, **kw))
                 torch.cuda.synchronize()
-                want = as_tuple(fused_smoother.smooth_level_torch(xb, bb, c, config, blocks=blk_bf16, **kw))
+                want = as_tuple(fused_smoother.smooth_level_torch(xb, bb, c, cfg_b, blocks=blk_bf16, **kw))
                 require(got[0].dtype == torch.bfloat16, "bf16 block output dtype")
                 for i, (g, w) in enumerate(zip(got, want)):
                     check("smoother_bf16", f"{key} [{i}]", g, w, None if g.dim() else dot_tol)
-            # One band pass alone vs plain (into a copy of x: the target
-            # holds x's values off the band, as the pass plan guarantees).
-            got = fused_smoother.band_pass(x, x.clone(), b, c, blk.band_cells, config.jacobi_damping, mode="cuda")
+            # A lone `b` pass of the chunk kernel vs the plain band-restricted
+            # pass into a copy of x (x itself off the band).
+            got = fused_smoother.smooth_level(x, b, c, config, True, blocks=blk, schedule=("b",))
             torch.cuda.synchronize()
             want = fused_smoother.band_pass_torch(x, x.clone(), b, c, blk.band_cells, config.jacobi_damping)
-            check("band_pass", f"L{lv} {tag} single pass", got, want, grid_tol)
+            check("smoother_band_strip", f"L{lv} {tag} lone b pass", got, want, grid_tol)
             r_got = fused_cg.residual(x, b, c.diag, c.ew0, c.ew1, c.ew2, mode="cuda")
             torch.cuda.synchronize()
             r_want = fused_cg.residual_torch(x, b, c.diag, c.ew0, c.ew1, c.ew2)
@@ -406,22 +439,23 @@ def main(argv=None) -> int:
     print(f"[4] worst full-grid smoother case: {max(worst, key=worst.get)} at {max(worst.values()):.3e} relative")
 
     # Times at the fine-level shape: fine upstroke blocks with the rho dot
-    # (8 passes), one band pass, one CG step, one residual.
+    # (8 passes) in the full-grid and band-restricted configurations, the
+    # bf16-field block, one CG step, one residual.
     c0 = hier.levels[0]
     x0f, b0f = rand_field(c0), rand_field(c0)
     x0h, b0h = x0f.to(torch.bfloat16), b0f.to(torch.bfloat16)
     blk0 = fused_smoother.level_blocks(c0, config)
+    blk0f = fused_smoother.level_blocks(c0, config_full)
     blk0h = fused_smoother.level_blocks(c0, config, torch.bfloat16)
-    out0 = x0f.clone()
     reps = 20
     times = {
         "smoother": (
-            cuda_ms(lambda: fused_smoother.smooth_level(x0f, b0f, c0, config_full, False, emit_dot=True), reps),
-            cuda_ms(lambda: fused_smoother.smooth_level_torch(x0f, b0f, c0, config_full, False, emit_dot=True), reps),
+            cuda_ms(lambda: fused_smoother.smooth_level(x0f, b0f, c0, config_full, False, emit_dot=True, blocks=blk0f), reps),
+            cuda_ms(lambda: fused_smoother.smooth_level_torch(x0f, b0f, c0, config_full, False, emit_dot=True, blocks=blk0f), reps),
         ),
-        "band_pass": (
-            cuda_ms(lambda: fused_smoother.band_pass(x0f, out0, b0f, c0, blk0.band_cells, config.jacobi_damping, mode="cuda"), reps),
-            cuda_ms(lambda: fused_smoother.band_pass_torch(x0f, out0, b0f, c0, blk0.band_cells, config.jacobi_damping), reps),
+        "smoother_band_strip": (
+            cuda_ms(lambda: fused_smoother.smooth_level(x0f, b0f, c0, config, False, emit_dot=True, blocks=blk0), reps),
+            cuda_ms(lambda: fused_smoother.smooth_level_torch(x0f, b0f, c0, config, False, emit_dot=True, blocks=blk0), reps),
         ),
         "smoother_bf16": (
             cuda_ms(lambda: fused_smoother.smooth_level(x0h, b0h, c0, config, False, emit_dot=True, blocks=blk0h), reps),
@@ -436,37 +470,87 @@ def main(argv=None) -> int:
             cuda_ms(lambda: fused_cg.residual_torch(x0f, b0f, c0.diag, c0.ew0, c0.ew1, c0.ew2), reps),
         ),
     }
-    band_block = (
-        cuda_ms(lambda: fused_smoother.smooth_level(x0f, b0f, c0, config, False, emit_dot=True, blocks=blk0), reps),
-        cuda_ms(lambda: fused_smoother.smooth_level_torch(x0f, b0f, c0, config, False, emit_dot=True, blocks=blk0), reps),
-    )
     what = {
-        "smoother": "full-grid fine upstroke block + dot",
-        "band_pass": f"one band pass ({blk0.band_cells.numel():,} cells)",
+        "smoother": "full-grid config, fine upstroke block + dot",
+        "smoother_band_strip": "band-restricted config, fine upstroke block + dot",
         "smoother_bf16": "bf16-field fine upstroke block + dot",
         "cg_step": "CG step", "residual": "residual",
     }
-    # Bounds: each input read once and each output written once.
+    # The bound of the work this run's data needs (`bounds`, the JSON's
+    # bound_ms): each input read once on the solvable cells, each output
+    # written once on every cell.  Over the whole window (`bounds_window`):
+    # each input read once and each output written once on every cell.
     nb0, n0 = blk0.band_cells.numel(), c0.diag.numel()
+    ns0, nsf = int(c0.solvable.sum()), int(fine.solvable.sum())
     upstroke = fused_smoother.schedule_for(config, False)
+    smoother_in = (x0f, b0f, c0.inv_diag, c0.ew0, c0.ew1, c0.ew2, c0.band)
+    bf16_in = (x0h, b0h, blk0h.narrow.inv_diag, c0.ew0, c0.ew1, c0.ew2, c0.band)
+    cg_in = (z, p, fine.diag, fine.ew0, fine.ew1, fine.ew2)
+    residual_in = (x0f, b0f, c0.diag, c0.ew0, c0.ew1, c0.ew2)
     bounds = {
-        "smoother": bound(nbytes(x0f, b0f, c0.inv_diag, c0.ew0, c0.ew1, c0.ew2, c0.band, x0f),
-                          block_ops(upstroke, n0, nb0, True)),
-        "band_pass": bound(nb0 * (2 * x0f.element_size() + b0f.element_size() + c0.inv_diag.element_size()
-                                  + 3 * c0.ew0.element_size() + blk0.band_cells.element_size()),
-                           OPS_PASS * nb0),
-        "smoother_bf16": bound(nbytes(x0h, b0h, blk0h.narrow.inv_diag, c0.ew0, c0.ew1, c0.ew2, c0.band, x0h),
-                               block_ops(upstroke, n0, nb0, True)),
-        "cg_step": bound(nbytes(z, p, fine.diag, fine.ew0, fine.ew1, fine.ew2, z, p),
-                         OPS_CG_STEP * fine.diag.numel()),
-        "residual": bound(nbytes(x0f, b0f, c0.diag, c0.ew0, c0.ew1, c0.ew2, x0f), OPS_RESIDUAL * n0),
+        "smoother": bound(active_bytes(ns0, smoother_in, n0, (x0f,)), block_ops(upstroke, ns0, nb0, True)),
+        "smoother_bf16": bound(active_bytes(ns0, bf16_in, n0, (x0h,)), block_ops(upstroke, ns0, nb0, True)),
+        "cg_step": bound(active_bytes(nsf, cg_in, fine.diag.numel(), (z, p)), OPS_CG_STEP * nsf),
+        "residual": bound(active_bytes(ns0, residual_in, n0, (x0f,)), OPS_RESIDUAL * ns0),
     }
+    bounds_window = {
+        "smoother": bound(nbytes(*smoother_in, x0f), block_ops(upstroke, n0, nb0, True)),
+        "smoother_bf16": bound(nbytes(*bf16_in, x0h), block_ops(upstroke, n0, nb0, True)),
+        "cg_step": bound(nbytes(*cg_in, z, p), OPS_CG_STEP * fine.diag.numel()),
+        "residual": bound(nbytes(*residual_in, x0f), OPS_RESIDUAL * n0),
+    }
+    for table in (bounds, bounds_window):
+        table["smoother_band_strip"] = table["smoother"]
     library = dict.fromkeys(names)  # no single PyTorch call computes these
     for name, (k_ms, p_ms) in times.items():
         print(f"[4] {name} at {tuple(c0.shape)}, {what[name]}: kernel {k_ms:.4f} ms, "
-              f"plain {p_ms:.4f} ms, bound {bounds[name][0]:.4f} ms ({bounds[name][1]}) [{card}]")
-    print(f"[4] band-restricted fine upstroke block + dot: kernel {band_block[0]:.4f} ms, "
-          f"plain {band_block[1]:.4f} ms [{card}]")
+              f"plain {p_ms:.4f} ms, bound over the solvable cells {bounds[name][0]:.4f} ms "
+              f"({bounds[name][1]}), over the whole window {bounds_window[name][0]:.4f} ms "
+              f"({bounds_window[name][1]}) [{card}]")
+    print(f"[4] fine upstroke block + dot: band-restricted config {times['smoother_band_strip'][0]:.4f} ms "
+          f"(recorded for the one-launch-per-pass kernel in PERF.md: 1.6521 ms), full-grid config "
+          f"{times['smoother'][0]:.4f} ms (recorded: 1.9510 ms) [{card}]")
+    # The host's share of a block: the wall time of the wrapper's calls
+    # without a sync (Python, allocations, the launch), against the device's.
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fused_smoother.smooth_level(x0f, b0f, c0, config, False, emit_dot=True, blocks=blk0)
+    host_ms = (time.perf_counter() - t0) * 1e3 / reps
+    torch.cuda.synchronize()
+    print(f"[4] fine upstroke block + dot: host {host_ms:.4f} ms per call to issue it (no sync), "
+          f"device {times['smoother_band_strip'][0]:.4f} ms [{card}]")
+
+    # The fine blocks at other chunk depths (the kept one is
+    # fused_smoother.CHUNK_DEPTH), each checked against the kept one: the
+    # upstroke with the dot and the downstroke from x = 0 with the residual.
+    up_ref = fused_smoother.smooth_level(x0f, b0f, c0, config, False, emit_dot=True, blocks=blk0)
+    for depth in (2, 4, 8):
+        blk_d = blk0._replace(tiles=fused_smoother.level_tiles(c0.solvable, blk0.tiles.band, depth))
+        got = fused_smoother.smooth_level(x0f, b0f, c0, config, False, emit_dot=True, blocks=blk_d)
+        torch.cuda.synchronize()
+        require(rel_err(got[0], up_ref[0])[1] <= grid_tol and rel_err(got[1], up_ref[1])[1] <= dot_tol,
+                f"chunk depth {depth}: differs from the kept chunk plan")
+        up_ms = cuda_ms(lambda blk=blk_d: fused_smoother.smooth_level(
+            x0f, b0f, c0, config, False, emit_dot=True, blocks=blk), reps)
+        down_ms = cuda_ms(lambda blk=blk_d: fused_smoother.smooth_level(
+            None, b0f, c0, config, True, x_is_zero=True, emit_residual=True, blocks=blk), reps)
+        t = blk_d.tiles
+        print(f"[4] chunk depth {depth}, tile {t.core}: active tiles {t.active.numel()}/{n_tiles(t)}, "
+              f"fine upstroke + dot {up_ms:.4f} ms, fine downstroke + residual {down_ms:.4f} ms [{card}]")
+    # Where the fine block's time goes: one launch each with the dot (so each
+    # pays the buffers, the copy-in and the final sweep): the six `b` passes
+    # alone, the two GS half-sweeps alone, and `b` passes over an empty band
+    # list (what is left is the launch, the buffers, the copy-in, the final
+    # sweep and one grid barrier per pass).
+    no_band = blk0._replace(tiles=blk0.tiles._replace(band=blk0.tiles.band[:0]))
+    parts = {"b x6": (("b",) * 6, blk0), "r k": (("r", "k"), blk0),
+             "b x2, empty band": (("b",) * 2, no_band), "b x8, empty band": (("b",) * 8, no_band)}
+    part_ms = [
+        f"{tag} {cuda_ms(lambda s=s, bl=bl: fused_smoother.smooth_level(x0f, b0f, c0, config, False, emit_dot=True, blocks=bl, schedule=s), reps):.4f} ms"
+        for tag, (s, bl) in parts.items()
+    ]
+    print(f"[4] fine block by pass kind, one launch each with the dot: {', '.join(part_ms)} [{card}]")
 
     # ---- 5. solve times, kernels vs plain ---------------------------------------------
     rhs = free_surface.embed_window(
@@ -479,24 +563,27 @@ def main(argv=None) -> int:
     config_t = dataclasses.replace(config, kernel_mode="torch")
     config_h = dataclasses.replace(config, mg_field_dtype=torch.bfloat16)
 
-    def best_solve(cfg):
-        best, res = float("inf"), None
-        for _ in range(3):
+    # Three rounds, the configurations in turns within each (the host's
+    # speed drifts between calls), the best of each kept.  Each solve also
+    # counts the device-memory segments the caching allocator had to add
+    # (cudaMalloc calls, which synchronize).
+    solves, each = {}, {}
+    for _ in range(3):
+        for tag, cfg in (("kernels", config), ("plain torch", config_t),
+                         ("kernels, pallas_band_strip=0", config_full),
+                         ("kernels, mg_field_dtype=bf16", config_h)):
+            segments = torch.cuda.memory_stats().get("segment.all.allocated", 0)
             torch.cuda.synchronize()
             t = time.perf_counter()
             res = mgpcg.solve(setup.problem, rhs, config=cfg)
             torch.cuda.synchronize()
-            best = min(best, time.perf_counter() - t)
-        return best, res
-
-    solves = {}
-    for tag, cfg in (("kernels", config), ("plain torch", config_t),
-                     ("kernels, pallas_band_strip=0", config_full),
-                     ("kernels, mg_field_dtype=bf16", config_h)):
-        solves[tag] = best_solve(cfg)
+            t = time.perf_counter() - t
+            segments = torch.cuda.memory_stats().get("segment.all.allocated", 0) - segments
+            each.setdefault(tag, []).append(f"{t:.4f} s ({segments} new segments)")
+            solves[tag] = min(solves.get(tag, (t, res)), (t, res), key=lambda tr: tr[0])
     for tag, (t, res) in solves.items():
         print(f"[5] solve best of 3, {tag}: {t:.4f} s, {res.iterations} iters, rel. residual "
-              f"{res.relative_residual:.3e}, {ndof / t:,.0f} DOF/s [{card}]")
+              f"{res.relative_residual:.3e}, {ndof / t:,.0f} DOF/s; each: {', '.join(each[tag])} [{card}]")
     res_k, res_0, res_h = (solves[k][1] for k in (
         "kernels", "kernels, pallas_band_strip=0", "kernels, mg_field_dtype=bf16"))
     _, band_rel = rel_err(res_k.x, res_0.x)
@@ -525,6 +612,43 @@ def main(argv=None) -> int:
     require(launches_h["smoother_bf16"] > 0, "the bf16-field smoother never ran")
     require(result_h.cg.converged and bool(torch.isfinite(result_h.pressure).all()),
             "bf16-field projection failed")
+
+    # One warm solve under torch.profiler: device time by kernel name, and
+    # the device's busy share against the profiled and the best unprofiled
+    # wall time.
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    mgpcg.solve(setup.problem, rhs, config=config)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        mgpcg.solve(setup.problem, rhs, config=config)
+        torch.cuda.synchronize()
+        wall_prof = time.perf_counter() - t0
+    device_ms, host_ms = {}, {}
+    for e in prof.key_averages():
+        if getattr(e, "device_type", None) != DeviceType.CUDA:
+            host_ms[e.key] = (e.self_cpu_time_total / 1e3, e.count)
+            continue
+        us = getattr(e, "self_device_time_total", None)
+        us = e.self_cuda_time_total if us is None else us
+        device_ms[e.key] = (us / 1e3, e.count)
+    total_ms = sum(ms for ms, _ in device_ms.values())
+    if total_ms > 0:
+        print(f"[5] profiled warm solve: device time {total_ms:.3f} ms over {len(device_ms)} kernel names, "
+              f"{sum(n for _, n in device_ms.values())} device launches and copies, "
+              f"wall {wall_prof * 1e3:.3f} ms profiled, {solves['kernels'][0] * 1e3:.3f} ms best unprofiled; "
+              f"busy {total_ms / (wall_prof * 1e3):.3f} of the profiled wall, "
+              f"{total_ms / (solves['kernels'][0] * 1e3):.3f} of the unprofiled [{card}]")
+        for key, (ms, count) in sorted(device_ms.items(), key=lambda kv: -kv[1][0])[:16]:
+            print(f"[5]   {ms:9.3f} ms {count:6d} launches  {key[:110]}")
+        print(f"[5] host side of the profiled solve: {sum(ms for ms, _ in host_ms.values()):.3f} ms of self "
+              f"CPU time in profiled host ops (the Python between them is not counted); the largest:")
+        for key, (ms, count) in sorted(host_ms.items(), key=lambda kv: -kv[1][0])[:10]:
+            print(f"[5]   {ms:9.3f} ms {count:6d} calls  {key[:80]}")
+    else:
+        print("[5] profiled warm solve: the profiler reported no device time (not measured)")
 
     # ---- 6. small fp64 projection vs a direct solve of the assembled system -----------
     m = 24
@@ -560,6 +684,25 @@ def main(argv=None) -> int:
     print(f"[6] {m}^3 fp64 on the card: {res_s.cg.iterations} iters, vs direct sparse solve "
           f"max relative difference {oracle:.3e}")
     require(res_s.cg.converged and oracle <= 1e-9, "fp64 projection disagrees with the direct solve")
+    # The fp64 chunk kernel against its plain version on this hierarchy.
+    fp64_err = 0.0
+    hier_s = setup_s.problem.hier
+    for lv in mg.smoothed_levels(hier_s):
+        c = hier_s.levels[lv]
+        x, b = rand_field(c).double(), rand_field(c).double()
+        blk = fused_smoother.level_blocks(c, cfg64)
+        for case, kw in cases.items():
+            xx = None if kw.get("x_is_zero") else x
+            cfg_c = case_config(cfg64, case)
+            got = as_tuple(fused_smoother.smooth_level(xx, b, c, cfg_c, blocks=blk, **kw))
+            torch.cuda.synchronize()
+            want = as_tuple(fused_smoother.smooth_level_torch(xx, b, c, cfg_c, blocks=blk, **kw))
+            for i, (g, w) in enumerate(zip(got, want)):
+                rel = rel_err(g, w)[1]
+                fp64_err = max(fp64_err, rel)
+                require(rel <= 1e-12, f"fp64 chunk kernel L{lv} {case} [{i}]: relative error {rel:.3e} > 1e-12")
+    print(f"[6] fp64 chunk kernel vs plain on the {m}^3 hierarchy's smoothed levels: max relative "
+          f"error {fp64_err:.3e} (limit 1e-12)")
 
     # ---- 7. the frame loop --------------------------------------------------------------
     frames_n = 4
@@ -584,7 +727,7 @@ def main(argv=None) -> int:
     print(f"[7] {frames_n} frames in {t_loop:.3f} s ({t_loop / frames_n:.3f} s per frame); "
           f"kernel launches {launches_loop}, expected {expected_loop}")
     require(launches_loop == expected_loop, "frame-loop launch counts differ from the plan")
-    for key in ("smoother", "band_pass", "cg_step", "residual"):
+    for key in ("smoother", "cg_step", "residual"):
         require(launches_loop[key] > 0, f"the frame loop never launched {key}")
     for k, fr in enumerate(frames):
         require(fr.relative_residual <= sim_cfg.tolerance and fr.iterations < sim_cfg.max_iterations,
@@ -619,6 +762,12 @@ def main(argv=None) -> int:
             f"{mesh.shape}; run at a size whose window splits (the default 256)")
     sharded_levels = [lv for lv in mg.smoothed_levels(hier) if flags[lv] == "sharded"]
     pre = {lv: fused_sharded.prehalo_coeffs(hier.levels[lv], mesh) for lv in sharded_levels}
+    sblk = {lv: fused_sharded.stacked_blocks(pre[lv]) for lv in sharded_levels}
+    for lv, blk in sblk.items():
+        t = blk.tiles
+        print(f"[8] L{lv} stacked grid: chunk depth {t.depth}, tile {t.core}, active tiles "
+              f"{t.active.numel()}/{n_tiles(t)} = {t.active.numel() / n_tiles(t):.3f}, "
+              f"{t.band.numel():,} band cells")
     pre_cg = fused_sharded.prehalo_cg_coeffs(fine, mesh)
     print(f"[8] stacked coefficients per solve: smoother "
           f"{sum(nbytes(*(t for t in pc if t is not None)) for pc in pre.values()) / 1e9:.3f} GB, "
@@ -670,10 +819,12 @@ def main(argv=None) -> int:
         for case, kw in cases.items():
             xx = None if kw.get("x_is_zero") else x
             key = f"L{lv} {case}"
-            got = as_tuple(fused_sharded.smooth_level_sharded(xx, b, c, config, mesh=mesh, prehaloed=pre[lv], **kw))
+            got = as_tuple(fused_sharded.smooth_level_sharded(
+                xx, b, c, case_config(config, case), mesh=mesh, prehaloed=pre[lv], blocks=sblk[lv], **kw))
             torch.cuda.synchronize()
-            want = as_tuple(fused_sharded.smooth_level_sharded(xx, b, c, config_t, mesh=mesh, prehaloed=pre_t, **kw))
-            single = as_tuple(fused_smoother.smooth_level(xx, b, c, config_full, **kw))
+            want = as_tuple(fused_sharded.smooth_level_sharded(
+                xx, b, c, case_config(config_t, case), mesh=mesh, prehaloed=pre_t, **kw))
+            single = as_tuple(fused_smoother.smooth_level(xx, b, c, case_config(config_full, case), **kw))
             for i, (g, w, s) in enumerate(zip(got, want, single)):
                 tol = grid_tol if g.dim() else dot_tol
                 check("smoother_sharded", f"{key} [{i}] vs plain", g, w, tol)
@@ -712,7 +863,7 @@ def main(argv=None) -> int:
     library["halo"] = cuda_ms(library_gather, reps)
     times["smoother_sharded"] = (
         cuda_ms(lambda: fused_sharded.smooth_level_sharded(
-            x0f, b0f, c0, config, False, mesh, prehaloed=pre[0], emit_dot=True), reps),
+            x0f, b0f, c0, config, False, mesh, prehaloed=pre[0], blocks=sblk[0], emit_dot=True), reps),
         cuda_ms(lambda: fused_sharded.smooth_level_sharded(
             x0f, b0f, c0, config_t, False, mesh, prehaloed=pre0_t, emit_dot=True), reps),
     )
@@ -722,12 +873,23 @@ def main(argv=None) -> int:
     )
     p0 = pre[0]
     stacked0 = p0.band.numel()
-    bounds["halo"] = bound(nbytes(x0f) + x0f.element_size() * stacked0, 0)
-    bounds["smoother_sharded"] = bound(
-        nbytes(x0f, b0f, p0.inv_diag, p0.ew0, p0.ew1, p0.ew2, p0.band, x0f),
-        block_ops(upstroke, stacked0, int(torch.count_nonzero(p0.band)), True),
+    stacked_in = (p0.inv_diag, p0.ew0, p0.ew1, p0.ew2, p0.band)
+    nb_s = int(torch.count_nonzero(p0.band))
+    ns_s = int(torch.count_nonzero(p0.inv_diag))  # the stacked solvable cells, halo copies included
+    bounds_window["halo"] = bound(nbytes(x0f) + x0f.element_size() * stacked0, 0)
+    bounds_window["smoother_sharded"] = bound(
+        nbytes(x0f, b0f, *stacked_in, x0f), block_ops(upstroke, stacked0, nb_s, True),
     )
-    bounds["cg_step_sharded"] = bound(nbytes(z, p, *pre_cg, z, p), OPS_CG_STEP * stacked0)
+    bounds_window["cg_step_sharded"] = bound(nbytes(z, p, *pre_cg, z, p), OPS_CG_STEP * stacked0)
+    bounds["halo"] = bound(active_bytes(ns0, (x0f,), stacked0, (x0f,)), 0)
+    bounds["smoother_sharded"] = bound(
+        active_bytes(ns0, (x0f, b0f), n0, (x0f,)) + active_bytes(ns_s, stacked_in, 0, ()),
+        block_ops(upstroke, ns_s, nb_s, True),
+    )
+    bounds["cg_step_sharded"] = bound(
+        active_bytes(nsf, (z, p), fine.diag.numel(), (z, p)) + active_bytes(ns_s, pre_cg, 0, ()),
+        OPS_CG_STEP * ns_s,
+    )
     what.update(halo="halo gather of one fp32 field",
                 smoother_sharded="block-mesh fine upstroke block + dot (gathers, 8 passes, scatter)",
                 cg_step_sharded="block-mesh CG step (gathers, step, scatters)")
@@ -735,7 +897,8 @@ def main(argv=None) -> int:
         k_ms, p_ms = times[name]
         lib = "" if library[name] is None else f", library {library[name]:.4f} ms"
         print(f"[8] {name} at {tuple(c0.shape)}, {what[name]}: kernel {k_ms:.4f} ms, plain "
-              f"{p_ms:.4f} ms{lib}, bound {bounds[name][0]:.4f} ms ({bounds[name][1]}) [{card}]")
+              f"{p_ms:.4f} ms{lib}, bound over the solvable cells {bounds[name][0]:.4f} ms ({bounds[name][1]}), "
+              f"over the whole window {bounds_window[name][0]:.4f} ms ({bounds_window[name][1]}) [{card}]")
 
     # Whole solves, single device and block mesh in turns.
     order = (None, mesh, mesh, None, None, mesh)
@@ -752,13 +915,15 @@ def main(argv=None) -> int:
 
     src = "geometricmultigridpressuresolver_tpu_torch/csrc/"
     jax_src = "geometricmultigridpressuresolver_tpu/"
+    # The band-strip and bf16-field rows are launches of the chunk kernel
+    # (`counter` names the count they are in).
     kernels = [
         {"name": "smoother", "route": "cuda", "source": src + "smoother.cu",
          "replaces": jax_src + "ops/pallas_smoother.py:619"},
-        {"name": "band_pass", "route": "cuda", "source": src + "smoother.cu",
-         "replaces": jax_src + "ops/pallas_smoother.py:513"},
+        {"name": "smoother_band_strip", "route": "cuda", "source": src + "smoother.cu",
+         "replaces": jax_src + "ops/pallas_smoother.py:513", "counter": "smoother"},
         {"name": "smoother_bf16", "route": "cuda", "source": src + "smoother.cu",
-         "replaces": jax_src + "ops/pallas_smoother.py:466"},
+         "replaces": jax_src + "ops/pallas_smoother.py:466", "counter": "smoother_bf16"},
         {"name": "cg_step", "route": "cuda", "source": src + "cg.cu",
          "replaces": jax_src + "ops/pallas_cg.py:329"},
         {"name": "residual", "route": "cuda", "source": src + "cg.cu",
@@ -772,12 +937,18 @@ def main(argv=None) -> int:
     ]
     for k in kernels:
         name = k["name"]
+        counter = k.get("counter", name)
         # The bf16-field smoother runs on the bf16-field projection's path,
         # the block-mesh kernels on the block-mesh projection's.
         path = launches_h if name == "smoother_bf16" else launches_m if name in names[5:] else launches
-        k.update(launches=path[name], launches_frame_loop=launches_loop[name], max_abs_err=errs[name],
+        k.update(launches=path[counter], launches_frame_loop=launches_loop[counter], max_abs_err=errs[name],
                  ms=times[name][0], plain_ms=times[name][1], bound_ms=bounds[name][0],
-                 bound_by=bounds[name][1], library_ms=library[name])
+                 bound_by=bounds[name][1], bound_active_ms=bounds[name][0],
+                 bound_window_ms=bounds_window[name][0], bound_window_by=bounds_window[name][1],
+                 library_ms=library[name])
+        if name.startswith("smoother"):
+            t = (sblk[0] if name == "smoother_sharded" else blk0h if name == "smoother_bf16" else blk0).tiles
+            k.update(depth=t.depth, tile=list(t.core), active_tile_share=t.active.numel() / n_tiles(t))
         if name in dot_errs:
             k["dot_max_rel_err"] = dot_errs[name]
     print(json.dumps({"kernels": kernels}))

@@ -62,13 +62,15 @@ class SolverConfig:
         against); "cuda" launches the kernels and raises on CPU tensors.
       record_residuals: record the relative residual of every CG iteration
         into CGResult.residual_history.
-      pallas_band_strip: 0 runs every boundary ('b') pass of the smoother
-        over the whole grid; any value > 0 restricts the passes that can be
-        restricted to a compacted list of the level's band cells, at every
-        level and every nz.  The JAX package's name and default (128) are
-        kept; on the TPU the value is a lane-strip width, on the card it
-        has no width meaning.  The numbers are the same as the full pass
-        (off the band a 'b' pass is the exact identity).
+      pallas_band_strip: 0 runs every boundary ('b') pass of the plain
+        smoother over the whole grid; any value > 0 restricts the passes
+        that can be restricted to a compacted list of the level's band
+        cells, at every level and every nz.  The JAX package's name and
+        default (128) are kept; on the TPU the value is a lane-strip width.
+        The numbers are the same as the full pass (off the band a 'b' pass
+        is the exact identity).  On the card it does not change the launch
+        plan: the chunk kernel (csrc/smoother.cu) skips the neighbour sum of
+        every non-band cell of a 'b' pass whatever the value.
       mg_field_dtype: storage dtype of the V-cycle's x / rhs / residual
         fields on the smoothed levels (None keeps the mg dtype).  bfloat16
         stores x, b and inv_diag narrow while each smoothing block computes

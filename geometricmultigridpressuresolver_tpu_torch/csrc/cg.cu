@@ -17,9 +17,10 @@
 // the six neighbour reads of z and p hit L1/L2.
 //
 // Kernel 3 replaces ops/pallas_cg.py::fused_residual (kernel body
-// _make_residual_kernel):  r = b - (diag*x - S(x)).  It is also the
-// smoother's emit_residual epilogue (the port's smoother is one launch per
-// pass).  x and diag are in the compute type T; b and r in the storage type
+// _make_residual_kernel):  r = b - (diag*x - S(x)): the CG's initial and
+// recomputed residuals, and the downstroke's where the smoother cannot fuse
+// it (the chunk kernel of smoother.cu forms it otherwise).  x and diag are
+// in the compute type T; b and r in the storage type
 // S: T itself, or bfloat16 over float when the V-cycle stores its fields
 // narrow -- then x is the smoother's unrounded float x and only r narrows,
 // as the Pallas kernel forms the residual before it narrows x

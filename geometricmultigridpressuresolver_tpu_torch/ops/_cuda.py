@@ -1,8 +1,9 @@
 """Build and load the hand-written CUDA kernels (csrc/*.cu).
 
 The kernels have a plain C interface and are bound with ctypes: nvcc
-compiles every source in ``csrc/`` into one shared library for ``sm_90a``
-the first time a kernel is launched, never at import.  The library lands in
+compiles the sources in ``csrc/`` (one process per source, in parallel) and
+links one shared library for ``sm_90a`` the first time a kernel is
+launched, never at import.  The library lands in
 ``_build/`` beside this package (listed in ``.gitignore``) under a name that
 hashes the sources and flags, so an edited source rebuilds by itself;
 deleting ``_build/`` forces a rebuild.
@@ -45,12 +46,10 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
     "gmg_block_size": ([], _I),
-    "gmg_smooth_pass": (
-        [_I] * 6 + [ctypes.c_double] + [_P] * 9 + [_I, _I, _I, _P] + [_I] * 5 + [_P], _I
+    "gmg_smooth_chunk": (
+        [_I] * 6 + [ctypes.c_double] + [_P] * 12 + [_I, _P] + [_I] * 7 + [_P, _I, _P] + [_I] * 5 + [_P], _I
     ),
-    "gmg_band_pass": (
-        [_I, _I, _I, ctypes.c_double] + [_P] * 8 + [ctypes.c_longlong, _I, _I, _I, _P], _I
-    ),
+    "gmg_smooth_chunk_grid": ([_I] * 4, _I),
     "gmg_cg_step": ([_I, _I] + [_P] * 10 + [_I, _I, _I] + [_I] * 5 + [_P], _I),
     "gmg_residual": ([_I, _I, _I] + [_P] * 7 + [_I, _I, _I, _P], _I),
     "gmg_sum_partials": ([_I, _P, ctypes.c_longlong, _P, _P], _I),
@@ -101,15 +100,31 @@ def _library_path() -> Path:
 
 
 def _build(target: Path) -> str:
+    """One nvcc per source, all started together, then one link."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = target.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp)]
-    cmd += [str(s) for s in sorted(CSRC.glob("*.cu"))]
-    proc = subprocess.run(cmd, capture_output=True, text=True, check=False)
-    log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
+    compile_flags = [f for f in NVCC_FLAGS if f != "-shared"]
+    jobs = []
+    for src in sorted(CSRC.glob("*.cu")):
+        obj = tmp.with_name(f"{tmp.name}.{src.stem}.o")
+        cmd = [_nvcc(), *compile_flags, "-c", "-o", str(obj), str(src)]
+        jobs.append((obj, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    log, failed = "", False
+    for obj, proc in jobs:
+        log += proc.communicate()[0]
+        failed |= proc.returncode != 0
+    if not failed:
+        link = subprocess.run(
+            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *(str(obj) for obj, _ in jobs)],
+            capture_output=True, text=True, check=False,
+        )
+        log += link.stdout + link.stderr
+        failed = link.returncode != 0
+    for obj, _ in jobs:
+        obj.unlink(missing_ok=True)
+    if failed:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
+        raise RuntimeError(f"nvcc failed:\n{log}")
     os.replace(tmp, target)  # atomic: a concurrent loader never sees half a file
     target.with_suffix(".log").write_text(log)
     return log

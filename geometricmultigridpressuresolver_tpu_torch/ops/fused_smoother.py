@@ -1,4 +1,4 @@
-"""One level's smoothing block: CUDA kernels (csrc/smoother.cu) and plain version.
+"""One level's smoothing block: the chunk kernel (csrc/smoother.cu) and plain version.
 
 Replaces ops/pallas_smoother.py::fused_smooth (driver smooth_level_pallas)
 of the JAX package, with its band-strip variant and its bfloat16 field
@@ -18,50 +18,47 @@ The GS update is inv_diag*(b+S) (the Pallas kernel's form), which equals
 cells up to rounding, because inv_diag*diag = 1 there.
 
 Variants: `x_is_zero` (the downstroke's zero start: x is not read),
-`emit_residual` (also return r = b - A x' from a residual launch on x'),
-`emit_dot` (also return <x', b> reduced in a fixed order in the compute
-dtype; the CG rho on the fine upstroke).  The block-mesh smoother
-(parallel/fused_sharded.py) runs the same passes over a stacked grid of
-haloed blocks: it names the pass list (`schedule`, a chunk of at most H
-passes) and the core window of the dot (`window`), and those passes count
-in `SHARDED_LAUNCHES`.
+`emit_residual` (also return r = b - A x'), `emit_dot` (also return <x', b>
+reduced in a fixed order in the compute dtype; the CG rho on the fine
+upstroke).  The block-mesh smoother (parallel/fused_sharded.py) runs the
+same passes over a stacked grid of haloed blocks: it names the pass list
+(`schedule`, a chunk of at most H passes) and the core window of the dot
+(`window`), and those launches count in `SHARDED_LAUNCHES`.
 
-The kernel is one launch per pass, one thread per cell, z fastest.  It is
-bound by device memory: about 23 B/cell per pass with bf16 edge weights, so
-an 8-pass block moves ~8x what the Pallas kernel's VMEM-resident pass stack
-moves.  `b` and `j` passes are simultaneous updates and ping-pong between
-two buffers; `r`/`k` passes run in place, since a colour reads only the
-other colour.  Every full pass touches every cell, so there is no
-eligibility gate: each smoothed level of any shape runs the kernel.
+The kernel (csrc/smoother.cu).  One cooperative launch runs a chunk of
+`Tiles.depth` consecutive passes (`chunk_plan`; the default 8-pass block
+is one launch), with a grid-wide barrier between passes; the last chunk
+also forms the residual, the narrow output and the dot.  Each pass touches
+what it changes: a `b` pass the band-cell list, a GS pass the cells of its
+colour in the active tiles, a Jacobi pass every cell of the active tiles.
+Tiles without a cell any pass can change (`level_tiles`, built once per
+solve in `level_blocks`, like the JAX package's active-slab lists) are
+never visited: the work buffers are allocated zeroed, which is the pass
+sequence's output there for fields that are zero off the solvable set
+(`smooth_level`'s precondition).  `config.pallas_band_strip` does not
+change the card's launches.  The tile and depth are fixed in code (`CHUNK_TILE`,
+`CHUNK_DEPTH`); there is no halo, so the residual always rides the last
+chunk (`Chunk.ring` matters only to the block mesh's H-cell halo).
 
-Band-restricted boundary passes (config.pallas_band_strip > 0).  A `b`
-pass is the identity off the band, so it need only write the band cells --
-if the buffer it writes already holds the input's values off the band.
-The band of a level is fixed for a whole solve: `level_blocks` compacts it
-once into an ascending int32 list (the JAX package builds its active-slab
-lists once per solve the same way).  Of the two sound designs -- gather the
-band's new values into a compact buffer and scatter them back in place
-(two launches per pass), or keep the ping-pong and write only the band
-when the target buffer is known to agree off the band -- the port takes
-the second: it keeps one launch per pass.  `pass_plan` tracks which of the
-two buffers agree with the current x off the band.  A full `b` pass leaves
-its source and target in agreement, and a band-only pass keeps every
-agreement; a GS or Jacobi pass breaks them all.  So in ``b b b r k b b b``
-the passes 3, 7 and 8 run band-only: the first `b` pass of a run writes a
-fresh or stale buffer and stays full.  A pass that writes the narrow
-output or the dot also stays full, since both need every cell.
+The plain version runs pass by pass.  With `pallas_band_strip` it writes
+the `b` passes that can be band-only into a compacted int32 list of the
+band cells (`band_cells`): `pass_plan` tracks which of two ping-pong
+buffers agree with the current x off the band, a full `b` pass leaves its
+source and target in agreement, a band-only pass keeps every agreement, a
+GS or Jacobi pass breaks them all.  So in ``b b b r k b b b`` the passes 3,
+7 and 8 run band-only; a pass that writes the narrow output or the dot
+stays full.  The numbers equal the full passes'.
 
 bfloat16 field storage (config.mg_field_dtype).  x, b and inv_diag are
-stored bf16 and the block computes in float32: the first pass reads the
-stored x, the passes between keep x in float32 buffers, and the last pass
+stored bf16 and the block computes in float32: the first chunk reads the
+stored x, the chunks between keep x in float32 buffers, and the last chunk
 narrows once (the Pallas kernel keeps the whole chunk in fp32 on its slab
 and narrows once, ops/pallas_smoother.py:590).  Rounding after every pass
 would compute something else.  The residual is formed from the unrounded
 float32 x with diag = 1/inv_diag of the narrowed inv_diag (the Pallas
 kernel's :582-588) and stored bf16; the dot is a float32 sum of products
-of the unrounded x.  Full passes over bf16 fields count in
-`NARROW_LAUNCHES`, band passes in `BAND_LAUNCHES`, the rest in
-`PASS_LAUNCHES`.
+of the unrounded x.  Chunks over bf16 fields count in `NARROW_LAUNCHES`,
+the others in `PASS_LAUNCHES`.
 """
 
 from __future__ import annotations
@@ -79,15 +76,22 @@ from geometricmultigridpressuresolver_tpu_torch.ops.stencil import (
 
 PASS_LAUNCHES = _cuda.LaunchCounter("smoother")
 NARROW_LAUNCHES = _cuda.LaunchCounter("smoother_bf16")
-BAND_LAUNCHES = _cuda.LaunchCounter("band_pass")
 SHARDED_LAUNCHES = _cuda.LaunchCounter("smoother_sharded")
 
 NARROW_DTYPE = torch.bfloat16
 # Halo depth H of the Pallas kernel: its pass stack runs in chunks of at
-# most H passes.  Ported only for the residual_fusable gate.
+# most H passes.  Ported for the residual_fusable gate and the block mesh.
 PALLAS_HALO = 8
+# Passes per chunk-kernel launch: the default block (8 passes) is one launch.
+CHUNK_DEPTH = 8
+# The tile (x planes, y rows, z columns; powers of two, z at least 2: the
+# kernel indexes a tile's cells with shifts, and a colour takes every other
+# z) over which the chunk kernel's active-tile list is built: tiles without
+# a cell any pass can change are skipped.  Of the tiles measured at the
+# 256^3 fine level the times spread 6% (PERF.md section 6); this one is kept.
+CHUNK_TILE = (8, 8, 32)
 
-_KIND_CODES = {"b": (0, 0), "r": (1, 0), "k": (1, 1), "j": (2, 0)}
+_KIND_CODES = {"b": 0, "r": 1, "k": 2, "j": 3}
 
 
 def schedule_for(config, forward: bool) -> tuple[str, ...]:
@@ -100,19 +104,50 @@ def schedule_for(config, forward: bool) -> tuple[str, ...]:
     return bnd + interior + bnd
 
 
+class Chunk(NamedTuple):
+    """One launch of the chunk kernel: passes [start, stop) of the schedule,
+    whether it starts from x == 0 and forms the residual, and its halo
+    width (the stages that read neighbours)."""
+
+    start: int
+    stop: int
+    zero: bool
+    residual: bool
+    ring: int
+
+
+def chunk_plan(length: int, depth: int, x_is_zero: bool = False, emit_residual: bool = False):
+    """The launches of a `length`-pass schedule at `depth` passes each (the
+    JAX package's chunking at depth H, ops/pallas_smoother.py:836-855): a
+    zero start applies to the first chunk, the residual to the last."""
+    chunks = []
+    for start in range(0, length, depth):
+        stop = min(start + depth, length)
+        zero = x_is_zero and start == 0
+        residual = emit_residual and stop == length
+        chunks.append(Chunk(start, stop, zero, residual, stop - start + residual - zero))
+    return tuple(chunks)
+
+
+def residual_fits(length: int, depth: int, x_is_zero: bool) -> bool:
+    """The JAX package's spare-ring rule (ops/pallas_smoother.py:670-674):
+    the residual rides the last chunk within a `depth`-cell halo -- a zero
+    start on a one-chunk schedule, or a last chunk of at most depth - 1
+    passes."""
+    return chunk_plan(length, depth, x_is_zero, True)[-1].ring <= depth
+
+
 def residual_fusable(config, forward: bool = True) -> bool:
     """The JAX package's gate for narrow field storage
     (ops/pallas_smoother.py::residual_fusable): can the residual ride the
     last H-pass chunk of a zero-start downstroke?"""
-    n = len(schedule_for(config, forward))
-    last = n % PALLAS_HALO or PALLAS_HALO
-    return last <= PALLAS_HALO - 1 or n <= PALLAS_HALO
+    return residual_fits(len(schedule_for(config, forward)), PALLAS_HALO, True)
 
 
 class PassStep(NamedTuple):
-    """One pass of a block: its kind, the buffers it reads and writes ("x":
-    the block's input, 0 and 1: the two work buffers), and whether it
-    writes only the band cells."""
+    """One pass of the plain version: its kind, the buffers it reads and
+    writes ("x": the block's input, 0 and 1: the two work buffers), and
+    whether it writes only the band cells."""
 
     kind: str
     src: object
@@ -147,14 +182,53 @@ def pass_plan(schedule, band: bool, final_full: bool) -> tuple[PassStep, ...]:
     return tuple(steps)
 
 
+def tile_grid(shape, core) -> tuple[int, int, int]:
+    """Tiles along x, y and z (the last ones ragged)."""
+    return tuple(-(-int(n) // int(t)) for n, t in zip(shape, core))
+
+
+def tile_occupancy(cells: torch.Tensor, core) -> torch.Tensor:
+    """(gx, gy, gz) bool: the tiles whose core holds a True cell."""
+    g = tile_grid(cells.shape, core)
+    padded = cells.new_zeros(tuple(n * t for n, t in zip(g, core)))
+    padded[: cells.shape[0], : cells.shape[1], : cells.shape[2]] = cells
+    lx, ty, tz = core
+    return padded.reshape(g[0], lx, g[1], ty, g[2], tz).any(5).any(3).any(1)
+
+
+class Tiles(NamedTuple):
+    """The chunk kernel's work lists of one level of `shape`: passes per
+    launch, the tile, the active tiles (x-major indices, ascending) and the
+    band cells (flat indices, ascending; every `b` pass runs over them
+    alone)."""
+
+    shape: tuple[int, int, int]
+    depth: int
+    core: tuple[int, int, int]
+    active: torch.Tensor  # int32
+    band: torch.Tensor    # int32
+
+
+def level_tiles(cells: torch.Tensor, band: torch.Tensor, depth: int | None = None) -> Tiles:
+    """`Tiles` of a level whose cells a pass can change are `cells` (bool)
+    and whose band cells are the list `band` (`band_cells`), over
+    `CHUNK_TILE`.  `depth` overrides `CHUNK_DEPTH`."""
+    depth = CHUNK_DEPTH if depth is None else int(depth)
+    occ = tile_occupancy(cells, CHUNK_TILE).reshape(-1)
+    ids = torch.arange(occ.numel(), dtype=torch.int32, device=occ.device)
+    return Tiles(tuple(cells.shape), depth, CHUNK_TILE, ids[occ], band)
+
+
 class LevelBlocks(NamedTuple):
     """Solve-invariant smoother data of one level (built once per solve,
-    like the JAX package's active-slab lists): the band-cell list for
-    band-restricted passes, and the narrowed coefficients for bf16 fields.
-    Kept apart from LevelCoeffs, which `interop` maps field for field."""
+    like the JAX package's active-slab lists): the band-cell list for the
+    plain version's band-restricted passes, the narrowed coefficients for
+    bf16 fields, and the chunk kernel's tiles.  Kept apart from
+    LevelCoeffs, which `interop` maps field for field."""
 
     band_cells: torch.Tensor | None  # int32 flat indices, ascending; None: full passes
     narrow: LevelCoeffs | None       # bf16 inv_diag, diag = 1/inv_diag (float32)
+    tiles: Tiles
 
 
 def band_cells(band: torch.Tensor) -> torch.Tensor:
@@ -173,15 +247,16 @@ def narrow_coeffs(c: LevelCoeffs) -> LevelCoeffs:
     return c._replace(inv_diag=inv, diag=diag)
 
 
-def level_blocks(c: LevelCoeffs, config, field_dtype=None) -> LevelBlocks:
-    """`LevelBlocks` of one level for fields stored as `field_dtype`."""
+def level_blocks(c: LevelCoeffs, config, field_dtype=None, depth: int | None = None) -> LevelBlocks:
+    """`LevelBlocks` of one level for fields stored as `field_dtype`; the
+    active tiles are those whose core holds a solvable cell.  `depth`
+    overrides `CHUNK_DEPTH`."""
+    band = band_cells(c.band)
     cells = None
-    if config.pallas_band_strip and "b" in schedule_for(config, True):
-        cells = band_cells(c.band)
-        if cells.numel() == 0:
-            cells = None
+    if config.pallas_band_strip and "b" in schedule_for(config, True) and band.numel():
+        cells = band
     narrow = narrow_coeffs(c) if field_dtype == NARROW_DTYPE else None
-    return LevelBlocks(cells, narrow)
+    return LevelBlocks(cells, narrow, level_tiles(c.solvable, band, depth))
 
 
 def _results(x, r, dot, emit_residual: bool, emit_dot: bool):
@@ -194,7 +269,7 @@ def _results(x, r, dot, emit_residual: bool, emit_dot: bool):
 
 
 def band_pass_torch(x, out, b, c: LevelCoeffs, cells, damping: float):
-    """Plain version of `band_pass`: out[cells] = the `b` update of x there,
+    """A band-restricted `b` pass: out[cells] = the `b` update of x there,
     in the full plain pass's arithmetic and association order (so the two
     give equal numbers); other cells of `out` are not touched."""
     idx = cells.long()
@@ -217,47 +292,6 @@ def band_pass_torch(x, out, b, c: LevelCoeffs, cells, damping: float):
     bb = b.reshape(-1)[idx].to(x.dtype)
     out.reshape(-1)[idx] = a * flat[idx] + wb * (bb + s)
     return out
-
-
-def band_pass(x, out, b, c: LevelCoeffs, cells, damping: float, mode: str = "auto"):
-    """Band-restricted `b` pass: writes the update of x at the listed cells
-    into `out` (in place) and leaves out's other cells as they are.
-
-    x and out are compute-dtype buffers; b and c.inv_diag are stored in the
-    compute dtype or, for float32 x, in bfloat16.
-    """
-    if not _cuda.use_kernel(mode, x):
-        return band_pass_torch(x, out, b, c, cells, damping)
-    what = "band_pass"
-    _cuda.check_cuda_operands(
-        what, x.shape, x=x, out=out, b=b, inv_diag=c.inv_diag, ew0=c.ew0, ew1=c.ew1, ew2=c.ew2
-    )
-    _cuda.check_cuda_operands(what, (cells.numel(),), cells=cells)
-    _cuda.check_dtypes(what, x, out, ews=(c.ew0, c.ew1, c.ew2))
-    _cuda.check_storage(what, x.dtype, b, c.inv_diag)
-    if cells.dtype != torch.int32:
-        raise TypeError(f"{what}: cells must be int32, got {cells.dtype}")
-    if out.data_ptr() == x.data_ptr():
-        raise ValueError(f"{what}: a simultaneous update cannot run in place")
-    _launch_band(x, out, b, c, cells, damping)
-    return out
-
-
-def _launch_band(x, out, b, c: LevelCoeffs, cells, damping: float) -> None:
-    """The band-pass launch on checked operands."""
-    nx, ny, nz = x.shape
-    _cuda.check(
-        _cuda.library().gmg_band_pass(
-            _cuda.DTYPE_CODES[x.dtype], _cuda.DTYPE_CODES[b.dtype],
-            _cuda.DTYPE_CODES[c.ew0.dtype], float(damping),
-            _cuda.ptr(x), _cuda.ptr(out), _cuda.ptr(b), _cuda.ptr(c.inv_diag),
-            _cuda.ptr(c.ew0), _cuda.ptr(c.ew1), _cuda.ptr(c.ew2), _cuda.ptr(cells),
-            cells.numel(), nx, ny, nz, _cuda.stream_of(x),
-        ),
-        "gmg_band_pass",
-    )
-    if cells.numel():
-        BAND_LAUNCHES.count += 1
 
 
 def _prepare(b, c: LevelCoeffs, config, blocks):
@@ -331,6 +365,15 @@ def smooth_level(
     level's `LevelBlocks` (built here when None).  `schedule` overrides the
     pass list of `config` and `forward`; `window` marks a stacked block grid
     and restricts the dot to its cores.
+
+    Precondition: x and b are zero on every cell that no pass can change
+    (off `c.solvable`; on a stacked grid, where inv_diag and band are both
+    zero), as every field of the solver is (ops/stencil.py).  Then the
+    kernel equals `smooth_level_torch` on every cell.  Otherwise the two
+    agree on the active tiles (`Tiles.active`; edge weights join only cells
+    a pass can change), while on the other tiles the kernel's x' and r are
+    zero and its dot leaves them out, where the plain version carries x and
+    b through.
     """
     if not _cuda.use_kernel(config.kernel_mode, b):
         return smooth_level_torch(
@@ -347,58 +390,72 @@ def smooth_level(
     )
     _cuda.check_dtypes(what, b, c.inv_diag, *(() if x_in is None else (x_in,)), ews=(c.ew0, c.ew1, c.ew2))
     _cuda.check_storage(what, cdt, b)
+    if c.diag.dtype != cdt:
+        raise TypeError(f"{what}: diag must be {cdt}, got {c.diag.dtype}")
     if c.band.dtype != torch.int8:
         raise TypeError(f"{what}: band must be int8, got {c.band.dtype}")
+    tiles = blocks.tiles
+    for name, t in (("tiles", tiles.active), ("band cells", tiles.band)):
+        _cuda.check_cuda_operands(what, (t.numel(),), **{name.replace(" ", "_"): t})
+        if t.dtype != torch.int32:
+            raise TypeError(f"{what}: {name} must be int32, got {t.dtype}")
+    if tiles.shape != tuple(b.shape):
+        raise ValueError(f"{what}: tiles built for {tiles.shape}, not {tuple(b.shape)}")
+    if schedule is None:
+        schedule = schedule_for(config, forward)
+    counter = SHARDED_LAUNCHES if window is not None else NARROW_LAUNCHES if narrow else PASS_LAUNCHES
     lib = _cuda.library()
     fdt, sdt = _cuda.DTYPE_CODES[cdt], _cuda.dtype_code(b, what)
     edt = _cuda.dtype_code(c.ew0, what)
     nx, ny, nz = b.shape
     stream = _cuda.stream_of(b)
-    cells = blocks.band_cells
-    if cells is not None:
-        _cuda.check_cuda_operands(what, (cells.numel(),), band_cells=cells)
-        if cells.dtype != torch.int32:
-            raise TypeError(f"{what}: band cells must be int32, got {cells.dtype}")
-    if schedule is None:
-        schedule = schedule_for(config, forward)
-    plan = pass_plan(schedule, cells is not None, emit_dot or narrow)
-    counter = SHARDED_LAUNCHES if window is not None else NARROW_LAUNCHES if narrow else PASS_LAUNCHES
-    partials = (
-        torch.empty(fused_cg.num_partials(b.shape), dtype=cdt, device=b.device)
-        if emit_dot else None
-    )
-    bufs = {"x": x_in}
-    x_store = None
-    for n, step in enumerate(plan):
-        src = bufs[step.src]
-        if step.band_only:
-            _launch_band(src, bufs[step.dst], b, c, cells, config.jacobi_damping)
-            continue
-        last = n == len(plan) - 1
-        x_out = None  # the last pass of a narrow block without a residual writes only x_store
-        if not (narrow and last and not emit_residual):
-            if step.dst not in bufs:
-                bufs[step.dst] = torch.empty(b.shape, dtype=cdt, device=b.device)
-            x_out = bufs[step.dst]
+    src = x_in
+    x_store = r = dot = None
+    for ch in chunk_plan(len(schedule), tiles.depth, x_is_zero, emit_residual):
+        last = ch.stop == len(schedule)
+        xdt = sdt if src is None else _cuda.dtype_code(src, what)
+        grid = chunk_grid(fdt, sdt, xdt, edt)
+        # Zeroed work buffers (zero is the output on dead tiles); the first
+        # holds the chunk's x.  The last chunk of a narrow block also writes
+        # the bf16 output.
+        buf_a = torch.zeros(b.shape, dtype=cdt, device=b.device)
+        buf_b = torch.zeros_like(buf_a)
         if narrow and last:
-            x_store = torch.empty_like(b)
-        code, color = _KIND_CODES[step.kind]
+            x_store = torch.zeros_like(b)
+        if ch.residual:
+            r = torch.zeros_like(b)
+        partials = torch.empty(grid, dtype=cdt, device=b.device) if emit_dot and last else None
+        barrier = torch.zeros(2, dtype=torch.int32, device=b.device)
+        kinds = sum(_KIND_CODES[k] << (2 * n) for n, k in enumerate(schedule[ch.start:ch.stop]))
         _cuda.check(
-            lib.gmg_smooth_pass(
-                fdt, sdt, sdt if src is None else _cuda.dtype_code(src, what), edt,
-                code, color, float(config.jacobi_damping),
-                _cuda.ptr(src), _cuda.ptr(x_out), _cuda.ptr(x_store), _cuda.ptr(b),
-                _cuda.ptr(c.inv_diag), _cuda.ptr(c.ew0), _cuda.ptr(c.ew1), _cuda.ptr(c.ew2),
-                _cuda.ptr(c.band), nx, ny, nz, _cuda.ptr(partials if last else None),
+            lib.gmg_smooth_chunk(
+                fdt, sdt, xdt, edt, ch.stop - ch.start, kinds, float(config.jacobi_damping),
+                _cuda.ptr(src), _cuda.ptr(buf_a), _cuda.ptr(buf_b), _cuda.ptr(x_store if last else None),
+                _cuda.ptr(r), _cuda.ptr(b), _cuda.ptr(c.inv_diag), _cuda.ptr(c.diag), _cuda.ptr(c.ew0),
+                _cuda.ptr(c.ew1), _cuda.ptr(c.ew2), _cuda.ptr(tiles.band), tiles.band.numel(),
+                _cuda.ptr(tiles.active), tiles.active.numel(), nx, ny, nz, *tiles.core,
+                _cuda.ptr(partials), grid, _cuda.ptr(barrier),
                 *fused_cg.window_args(window, b.shape), stream,
             ),
-            f"gmg_smooth_pass({step.kind})",
+            "gmg_smooth_chunk",
         )
         counter.count += 1
-    xf = bufs.get(plan[-1].dst)
-    r = dot = None
-    if emit_residual:
-        r = fused_cg.residual(xf, b, c.diag, c.ew0, c.ew1, c.ew2, mode="cuda")
-    if emit_dot:
-        dot = fused_cg.sum_partials(partials)
-    return _results(x_store if narrow else xf, r, dot, emit_residual, emit_dot)
+        src = buf_a
+        if partials is not None:
+            dot = fused_cg.sum_partials(partials)
+    return _results(x_store if narrow else src, r, dot, emit_residual, emit_dot)
+
+
+_GRIDS: dict = {}
+
+
+def chunk_grid(fdt: int, sdt: int, xdt: int, edt: int) -> int:
+    """CUDA blocks of a chunk-kernel launch for these dtype codes: as many
+    as the card holds at once (the launch is cooperative)."""
+    key = (torch.cuda.current_device(), fdt, sdt, xdt, edt)
+    if key not in _GRIDS:
+        grid = int(_cuda.library().gmg_smooth_chunk_grid(fdt, sdt, xdt, edt))
+        if grid <= 0:
+            raise RuntimeError(f"gmg_smooth_chunk_grid{key[1:]}: no launchable grid")
+        _GRIDS[key] = grid
+    return _GRIDS[key]

@@ -5,9 +5,9 @@ under `jax.shard_map`: each block gains an H-cell halo of neighbour data
 along every sharded mesh axis, the kernel runs on the haloed block, the
 core is sliced back out, and the dots are psummed over the mesh.  On one
 card (`parallel.mesh.BlockMesh`) the port gathers ALL haloed blocks of a
-level into one stacked tensor (`parallel.halo`), runs each pass of the
-existing smoother kernel once over the stacked grid (so the launch count
-per pass is that of the single-device path), and scatters the cores back.
+level into one stacked tensor (`parallel.halo`), runs the single-device
+chunk kernel over the stacked grid (so the launch count per chunk is that
+of the single-device path), and scatters the cores back.
 The dots count core cells only (`ops.fused_cg.CoreWindow`) and are summed
 from per-CUDA-block partials in a fixed order.
 
@@ -15,10 +15,13 @@ Because a block's halo cells are private copies, this is the sharded
 schedule -- at most H passes per gather, the ring budget of
 ``ops/pallas_smoother.py:652-659`` -- and equals the single-device block
 cell for cell (the per-cell arithmetic is the same; only the dot's order
-differs).  Sharded levels run full-grid `b` passes, as the JAX package's
-sharded path calls `fused_smooth` without a band strip, and keep the mg
-dtype (no narrow fields).  On CPU tensors the same functions run the plain
-versions over the same stacked layout.
+differs).  The chunk kernel's halo is its own, inside the stacked grid;
+its active tiles are those whose core holds a cell with inv_diag != 0 or
+band != 0 (`stacked_blocks`).  Sharded levels keep the mg dtype (no narrow
+fields), and their plain version runs full-grid `b` passes, as the JAX
+package's sharded path calls `fused_smooth` without a band strip.  On CPU
+tensors the same functions run the plain versions over the same stacked
+layout.
 
 On one card the sharded path is slower than the single-device one by
 construction: it pays the halo redundancy (1.25x the cells of the 256^3
@@ -34,10 +37,6 @@ from geometricmultigridpressuresolver_tpu_torch.ops.stencil import LevelCoeffs
 from geometricmultigridpressuresolver_tpu_torch.parallel import halo
 from geometricmultigridpressuresolver_tpu_torch.parallel.halo import H
 from geometricmultigridpressuresolver_tpu_torch.parallel.mesh import BlockMesh
-
-# Every stacked pass writes the whole stacked grid: no band-cell list.
-_FULL_PASSES = fused_smoother.LevelBlocks(None, None)
-
 
 def sharded_eligible(shape, split, mesh: BlockMesh, level: int, num_levels: int) -> bool:
     """Geometry preconditions of the sharded path (`grid_split`'s `split`).
@@ -84,6 +83,16 @@ def prehalo_coeffs(c: LevelCoeffs, mesh: BlockMesh, mode: str = "auto") -> Level
     )
 
 
+def stacked_blocks(hc: LevelCoeffs) -> fused_smoother.LevelBlocks:
+    """The smoother's `LevelBlocks` of a stacked grid (`prehalo_coeffs`),
+    built once per solve: full-grid plain passes (no band-cell list) and the
+    tiles whose core holds a cell any pass can change, inv_diag != 0 or
+    band != 0 (the stacked coefficients carry no `solvable`)."""
+    cells = (hc.inv_diag != 0) | (hc.band != 0)
+    tiles = fused_smoother.level_tiles(cells, fused_smoother.band_cells(hc.band))
+    return fused_smoother.LevelBlocks(None, None, tiles)
+
+
 def prehalo_cg_coeffs(c: LevelCoeffs, mesh: BlockMesh, mode: str = "auto") -> tuple:
     """The CG operator's constant arrays (diag, ew0..2) as stacked haloed
     blocks, built once per solve."""
@@ -113,6 +122,7 @@ def cg_step_sharded(z, p, beta, c: LevelCoeffs, config, mesh: BlockMesh, prehalo
 def smooth_level_sharded(
     x, b, c: LevelCoeffs, config, forward: bool, mesh: BlockMesh, prehaloed=None,
     emit_dot: bool = False, x_is_zero: bool = False, emit_residual: bool = False,
+    blocks: fused_smoother.LevelBlocks | None = None,
 ):
     """The block-mesh smoothing block of one level; a drop-in for
     `ops.fused_smoother.smooth_level` on a level the mesh splits.
@@ -123,31 +133,30 @@ def smooth_level_sharded(
     on the stacked grid, then scattered) and needs a spare halo ring: a
     zero start on a one-chunk schedule, or a last chunk of at most H - 1
     passes.  `emit_dot` sums <x', b> over the cores.  `prehaloed` is
-    `prehalo_coeffs(c, mesh)` (built here when None).  Returns what
-    `smooth_level` returns.
+    `prehalo_coeffs(c, mesh)` and `blocks` `stacked_blocks(prehaloed)`
+    (built here when None).  Returns what `smooth_level` returns.
     """
     mode = config.kernel_mode
     geom = halo.geometry(mesh, b.shape)
     schedule = fused_smoother.schedule_for(config, forward)
-    starts = list(range(0, len(schedule), H))
-    last_len = len(schedule) - starts[-1]
-    if emit_residual and not ((x_is_zero and len(starts) == 1) or last_len <= H - 1):
+    if emit_residual and not fused_smoother.residual_fits(len(schedule), H, x_is_zero):
         raise ValueError(
             "emit_residual needs one spare halo ring: requires x_is_zero on a "
             f"one-chunk schedule or a last chunk of <= {H - 1} passes (got {len(schedule)})"
         )
     if prehaloed is None:
         prehaloed = prehalo_coeffs(c, mesh, mode)
+    if blocks is None:
+        blocks = stacked_blocks(prehaloed)
     bh = halo.halo_gather(b, geom, mode)
     out = None
-    for n, start in enumerate(starts):
-        first, last = n == 0, n == len(starts) - 1
-        zero = x_is_zero and first
-        xh = None if zero else halo.halo_gather(x, geom, mode)
+    for ch in fused_smoother.chunk_plan(len(schedule), H, x_is_zero, emit_residual):
+        last = ch.stop == len(schedule)
+        xh = None if ch.zero else halo.halo_gather(x, geom, mode)
         out = fused_smoother.smooth_level(
             xh, bh, prehaloed, config, forward,
-            emit_dot=emit_dot and last, x_is_zero=zero, emit_residual=emit_residual and last,
-            blocks=_FULL_PASSES, schedule=schedule[start:start + H], window=geom.window,
+            emit_dot=emit_dot and last, x_is_zero=ch.zero, emit_residual=ch.residual,
+            blocks=blocks, schedule=schedule[ch.start:ch.stop], window=geom.window,
         )
         out = out if isinstance(out, tuple) else (out,)
         x = halo.core_scatter(out[0], geom, mode)

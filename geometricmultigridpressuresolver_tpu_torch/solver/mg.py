@@ -10,13 +10,14 @@
     adjoint GS ordering on the upstroke, 4x trilinear prolongation, and a
     smoothing-only cycle when the hierarchy has one level.
   * hierarchy_block_lists: each smoothed level's solve-invariant smoother
-    data (band-cell list, narrowed coefficients, or a sharded level's
-    stacked haloed coefficients), built once per solve.
+    data (band-cell list, narrowed coefficients and active tiles, or a
+    sharded level's stacked haloed coefficients and their tiles), built
+    once per solve.
   * level_flags: with a block mesh (`parallel.mesh.BlockMesh`), which
     levels run the block-mesh smoother (`parallel.fused_sharded`).
 
-Without a mesh every smoothed level runs the single-device smoother kernel
-on the card: it takes any shape, so there is no eligibility gate -- and
+Without a mesh every smoothed level runs the single-device chunk kernel on
+the card: it takes any shape, so there is no eligibility gate -- and
 with `config.mg_field_dtype` every smoothed level stores its fields narrow.
 With a mesh, a level is "sharded" where the mesh splits it and
 `sharded_eligible` holds (JAX mg.py:666-726); sharded levels keep the mg
@@ -276,9 +277,10 @@ def level_field_dtypes(hier: MGHierarchy, config: SolverConfig, flags) -> tuple[
 def hierarchy_block_lists(hier: MGHierarchy, config: SolverConfig, mesh=None):
     """Per-level solve-invariant smoother data of the smoothed levels:
     `ops.fused_smoother.LevelBlocks` on single-device levels, the stacked
-    haloed coefficients (`fused_sharded.prehalo_coeffs`) on sharded ones,
-    None for the coarsest.  A CG loop builds this once and passes it to
-    every `v_cycle` (JAX mg.py:729-768)."""
+    haloed coefficients and their blocks (`fused_sharded.prehalo_coeffs`,
+    `fused_sharded.stacked_blocks`) on sharded ones, None for the coarsest.
+    A CG loop builds this once and passes it to every `v_cycle` (JAX
+    mg.py:729-768)."""
     flags = level_flags(hier, config, mesh)
     fdts = level_field_dtypes(hier, config, flags)
     smoothed = smoothed_levels(hier)
@@ -287,7 +289,8 @@ def hierarchy_block_lists(hier: MGHierarchy, config: SolverConfig, mesh=None):
         if level not in smoothed:
             out.append(None)
         elif flags[level] == "sharded":
-            out.append(fused_sharded.prehalo_coeffs(c, mesh, config.kernel_mode))
+            hc = fused_sharded.prehalo_coeffs(c, mesh, config.kernel_mode)
+            out.append((hc, fused_sharded.stacked_blocks(hc)))
         else:
             out.append(fused_smoother.level_blocks(c, config, fdts[level]))
     return tuple(out)
@@ -329,8 +332,9 @@ def v_cycle(
     def smooth(level, xl, rhs_l, forward, **kw):
         c = hier.levels[level]
         if flags[level] == "sharded":
+            hc, blocks = block_lists[level]
             return fused_sharded.smooth_level_sharded(
-                xl, rhs_l, c, config, forward, mesh, prehaloed=block_lists[level], **kw
+                xl, rhs_l, c, config, forward, mesh, prehaloed=hc, blocks=blocks, **kw
             )
         return fused_smoother.smooth_level(xl, rhs_l, c, config, forward, blocks=block_lists[level], **kw)
 

@@ -25,7 +25,7 @@ from geometricmultigridpressuresolver_tpu_torch import parallel
 from geometricmultigridpressuresolver_tpu_torch.config import SolverConfig
 from geometricmultigridpressuresolver_tpu_torch.models import free_surface, sdf, simulate
 from geometricmultigridpressuresolver_tpu_torch.grids import face_shape
-from geometricmultigridpressuresolver_tpu_torch.ops import domain, fused_cg, fused_smoother
+from geometricmultigridpressuresolver_tpu_torch.ops import domain, fused_cg, fused_smoother, stencil
 from geometricmultigridpressuresolver_tpu_torch.parallel import fused_sharded, halo
 from geometricmultigridpressuresolver_tpu_torch.solver import mg, mgpcg
 
@@ -95,14 +95,13 @@ def test_smoother_kernel_matches_plain(device, dtype, ew_dtype, grid_tol, dot_to
     if variant == "jacobi":
         cfg = SolverConfig(solve_dtype=dtype, mg_ew_dtype=ew_dtype, use_gauss_seidel=False)
     xin = None if kw.get("x_is_zero") else x
-    before = fused_smoother.PASS_LAUNCHES.count, fused_smoother.BAND_LAUNCHES.count
+    before = fused_smoother.PASS_LAUNCHES.count
     got = fused_smoother.smooth_level(xin, b, c, cfg, **kw)
     torch.cuda.synchronize()
-    plan = fused_smoother.pass_plan(
-        fused_smoother.schedule_for(cfg, kw["forward"]), True, kw.get("emit_dot", False)
+    chunks = fused_smoother.chunk_plan(
+        len(fused_smoother.schedule_for(cfg, kw["forward"])), fused_smoother.CHUNK_DEPTH
     )
-    assert fused_smoother.BAND_LAUNCHES.count - before[1] == sum(s.band_only for s in plan) > 0
-    assert fused_smoother.PASS_LAUNCHES.count - before[0] == sum(not s.band_only for s in plan)
+    assert fused_smoother.PASS_LAUNCHES.count - before == len(chunks)
     want = fused_smoother.smooth_level_torch(xin, b, c, cfg, **kw)
     got = got if isinstance(got, tuple) else (got,)
     want = want if isinstance(want, tuple) else (want,)
@@ -161,16 +160,17 @@ def _bf16_bound(want) -> float:
 
 @pytest.mark.parametrize("dtype, ew_dtype, grid_tol, dot_tol", CASES)
 def test_band_pass_kernel_matches_plain(device, dtype, ew_dtype, grid_tol, dot_tol):
+    """A lone `b` pass in the chunk kernel is the band-restricted pass: the
+    update on the band cells, x itself everywhere else."""
     c, x, b, cfg = _level(device, dtype, ew_dtype)
     cells = fused_smoother.band_cells(c.band)
-    sentinel = torch.full_like(x, 7.0)
-    before = fused_smoother.BAND_LAUNCHES.count
-    got = fused_smoother.band_pass(x, sentinel.clone(), b, c, cells, cfg.jacobi_damping, mode="cuda")
+    before = fused_smoother.PASS_LAUNCHES.count
+    got = fused_smoother.smooth_level(x, b, c, cfg, True, schedule=("b",))
     torch.cuda.synchronize()
-    assert fused_smoother.BAND_LAUNCHES.count - before == 1
-    want = fused_smoother.band_pass_torch(x, sentinel.clone(), b, c, cells, cfg.jacobi_damping)
+    assert fused_smoother.PASS_LAUNCHES.count - before == 1
+    want = fused_smoother.band_pass_torch(x, x.clone(), b, c, cells, cfg.jacobi_damping)
     assert _rel(got, want) <= grid_tol
-    assert (got[~c.band.bool()] == 7.0).all()
+    assert torch.equal(got[~c.band.bool()], x[~c.band.bool()])
 
 
 @pytest.mark.parametrize("dtype, ew_dtype, grid_tol, dot_tol", CASES)
@@ -211,8 +211,8 @@ def test_bf16_field_kernel_matches_plain(device, ew_dtype, variant):
     before = fused_smoother.NARROW_LAUNCHES.count
     got = fused_smoother.smooth_level(xin, bh, c, cfg, blocks=blocks, **kw)
     torch.cuda.synchronize()
-    plan = fused_smoother.pass_plan(fused_smoother.schedule_for(cfg, kw["forward"]), True, True)
-    assert fused_smoother.NARROW_LAUNCHES.count - before == sum(not s.band_only for s in plan)
+    chunks = fused_smoother.chunk_plan(len(fused_smoother.schedule_for(cfg, kw["forward"])), blocks.tiles.depth)
+    assert fused_smoother.NARROW_LAUNCHES.count - before == len(chunks)
     want = fused_smoother.smooth_level_torch(xin, bh, c, cfg, blocks=blocks, **kw)
     got = got if isinstance(got, tuple) else (got,)
     want = want if isinstance(want, tuple) else (want,)
@@ -268,11 +268,12 @@ def test_core_window_kernels_match_plain(device, dtype, ew_dtype, grid_tol, dot_
     c, x, b, cfg, mesh, geom = _sharded_level(device, dtype, ew_dtype)
     hc = fused_sharded.prehalo_coeffs(c, mesh)
     xh, bh = halo.halo_gather(x, geom), halo.halo_gather(b, geom)
-    full = fused_smoother.LevelBlocks(None, None)
+    full = fused_sharded.stacked_blocks(hc)
     before = fused_smoother.SHARDED_LAUNCHES.count
     got = fused_smoother.smooth_level(xh, bh, hc, cfg, False, emit_dot=True, blocks=full, window=geom.window)
     torch.cuda.synchronize()
-    assert fused_smoother.SHARDED_LAUNCHES.count - before == len(fused_smoother.schedule_for(cfg, False))
+    schedule = fused_smoother.schedule_for(cfg, False)
+    assert fused_smoother.SHARDED_LAUNCHES.count - before == len(fused_smoother.chunk_plan(len(schedule), full.tiles.depth))
     want = fused_smoother.smooth_level_torch(xh, bh, hc, cfg, False, emit_dot=True, blocks=full, window=geom.window)
     assert _rel(got[0], want[0]) <= grid_tol and _rel(got[1], want[1]) <= dot_tol
     cores = halo.core_scatter(got[0], geom)
@@ -359,12 +360,148 @@ def test_frame_loop_kernels_match_plain_fp64(device):
     phi, velocity = sdf.splash_scene((n, n, n), device=device)
     weights = sdf.open_box_weights((n, n, n), device=device)
     cfg = SolverConfig(tolerance=1e-9, max_iterations=300)
-    fused_smoother.BAND_LAUNCHES.reset()
+    fused_smoother.PASS_LAUNCHES.reset()
     got = simulate.run(phi, velocity, weights, num_frames=3, dt=1.0 / 60.0, config=cfg)
-    assert fused_smoother.BAND_LAUNCHES.count > 0
+    assert fused_smoother.PASS_LAUNCHES.count > 0
     want = simulate.run(phi, velocity, weights, num_frames=3, dt=1.0 / 60.0,
                         config=SolverConfig(tolerance=1e-9, max_iterations=300, kernel_mode="torch"))
     for g, w in zip(got, want):
         assert g.iterations == w.iterations
         assert _rel(g.pressure, w.pressure) <= 1e-10
     assert got[1].window_reused and got[2].window_reused
+
+
+def _random_level(device, shape, dtype, ew_dtype, seed=0, dead=True):
+    """A level of random coefficients with the stencil's invariants (edge
+    weights only between solvable cells, fields zero off them), 85% of the
+    cells solvable and, with `dead`, a corner block without any."""
+    rng = np.random.default_rng(seed)
+    solv = rng.random(shape) < 0.85
+    if dead:
+        solv[: shape[0] // 2, : shape[1] // 2, :] = False
+    ews = []
+    for axis in range(3):
+        up = np.roll(solv, -1, axis)
+        edge = [slice(None)] * 3
+        edge[axis] = -1
+        up[tuple(edge)] = False
+        ews.append(np.where(solv & up, 0.5 + rng.random(shape), 0.0))
+    diag = np.where(solv, 4.0 + rng.random(shape), 0.0)
+    band = solv & (rng.random(shape) < 0.4)
+    t = lambda a, dt=dtype: torch.from_numpy(a).to(device=device, dtype=dt)  # noqa: E731
+    c = stencil.LevelCoeffs(
+        t(solv, torch.bool), t(band, torch.int8), t(diag), t(np.where(solv, 1.0 / np.maximum(diag, 1.0), 0.0)),
+        *(t(e, ew_dtype or dtype) for e in ews),
+    )
+    x = t(np.where(solv, rng.standard_normal(shape), 0.0))
+    b = t(np.where(solv, rng.standard_normal(shape), 0.0))
+    return c, x, b
+
+
+VARIANTS = {
+    "down": dict(forward=True, x_is_zero=True, emit_residual=True),
+    "up_dot": dict(forward=False, emit_dot=True),
+    "warm_residual": dict(forward=True, emit_residual=True),
+    "warm": dict(forward=True),
+}
+
+
+def _check_chunks(device, c, x, b, cfg, blocks, kw, grid_tol, dot_tol):
+    xin = None if kw.get("x_is_zero") else x
+    got = fused_smoother.smooth_level(xin, b, c, cfg, blocks=blocks, **kw)
+    torch.cuda.synchronize()
+    want = fused_smoother.smooth_level_torch(xin, b, c, cfg, blocks=blocks, **kw)
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    for g, w in zip(got, want):
+        assert _rel(g, w) <= (grid_tol if g.dim() else dot_tol)
+    assert (got[0][~c.solvable] == 0).all()
+    return got
+
+
+@pytest.mark.parametrize("depth", range(1, 9))
+@pytest.mark.parametrize("variant", list(VARIANTS))
+def test_chunk_depths_match_plain(device, depth, variant):
+    """Every chunk depth 1..8, each variant; the fused residual after a
+    zero start and after a streamed x (no spare halo ring is needed)."""
+    c, x, b = _random_level(device, (40, 36, 72), torch.float32, torch.bfloat16, seed=depth)
+    cfg = SolverConfig(solve_dtype=torch.float32, mg_ew_dtype=torch.bfloat16)
+    blocks = fused_smoother.level_blocks(c, cfg, depth=depth)
+    grid = fused_smoother.tile_grid(c.shape, blocks.tiles.core)
+    assert blocks.tiles.depth == depth and 0 < blocks.tiles.active.numel() < grid[0] * grid[1] * grid[2]
+    kw = VARIANTS[variant]
+    before = fused_smoother.PASS_LAUNCHES.count
+    _check_chunks(device, c, x, b, cfg, blocks, kw, 1e-5, 1e-4)
+    chunks = fused_smoother.chunk_plan(8, depth, kw.get("x_is_zero", False), kw.get("emit_residual", False))
+    assert fused_smoother.PASS_LAUNCHES.count - before == len(chunks)
+
+
+@pytest.mark.parametrize("shape", [(37, 29, 45), (20, 18, 20), (9, 70, 130), (1, 1, 1)])
+@pytest.mark.parametrize("dtype, ew_dtype, grid_tol, dot_tol", CASES)
+def test_chunk_kernel_on_ragged_shapes(device, shape, dtype, ew_dtype, grid_tol, dot_tol):
+    """Shapes that the tiles do not divide, nz below the tile's z extent."""
+    c, x, b = _random_level(device, shape, dtype, ew_dtype, seed=sum(shape))
+    cfg = SolverConfig(solve_dtype=dtype, mg_ew_dtype=ew_dtype)
+    blocks = fused_smoother.level_blocks(c, cfg)
+    for kw in VARIANTS.values():
+        _check_chunks(device, c, x, b, cfg, blocks, kw, grid_tol, dot_tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_chunk_kernel_dead_tiles_only(device, dtype):
+    """No solvable cell: no active tile, every output zero, the dot 0."""
+    c, x, b = _random_level(device, (33, 20, 70), dtype, None)
+    c = c._replace(solvable=torch.zeros_like(c.solvable))
+    cfg = SolverConfig(solve_dtype=dtype)
+    blocks = fused_smoother.level_blocks(c, cfg)
+    assert blocks.tiles.active.numel() == 0
+    x, b = torch.zeros_like(x), torch.zeros_like(b)
+    junk = torch.full_like(x, float("nan"))
+    for kw in VARIANTS.values():
+        got = fused_smoother.smooth_level(junk if kw.get("x_is_zero") else x, b, c, cfg, blocks=blocks, **kw)
+        torch.cuda.synchronize()
+        for g in got if isinstance(got, tuple) else (got,):
+            assert torch.equal(g, torch.zeros_like(g))
+
+
+def _active_cells(tiles, device):
+    """(nx, ny, nz) bool: the cells of the active tiles."""
+    lx, ty, tz = tiles.core
+    gx, gy, gz = fused_smoother.tile_grid(tiles.shape, tiles.core)
+    occ = torch.zeros(gx * gy * gz, dtype=torch.bool, device=device)
+    occ[tiles.active.long()] = True
+    full = occ.reshape(gx, 1, gy, 1, gz, 1).expand(gx, lx, gy, ty, gz, tz).reshape(gx * lx, gy * ty, gz * tz)
+    nx, ny, nz = tiles.shape
+    return full[:nx, :ny, :nz]
+
+
+@pytest.mark.parametrize("variant", ["down", "warm_residual", "jacobi_residual"])
+def test_chunk_kernel_with_fields_off_the_solvable_set(device, variant):
+    """smooth_level's precondition: x and b zero off the solvable set.  With
+    both nonzero there, the kernel still equals the plain version on the
+    active tiles, and its x' and r are zero on the other tiles, where the
+    plain version carries x and b through."""
+    c, _, _ = _random_level(device, (40, 36, 72), torch.float32, None, seed=5)
+    gen = torch.Generator(device=device).manual_seed(6)
+    x = torch.randn(c.shape, generator=gen, device=device)
+    b = torch.randn(c.shape, generator=gen, device=device)
+    cfg = SolverConfig(solve_dtype=torch.float32, use_gauss_seidel=not variant.startswith("jacobi"))
+    kw = dict(VARIANTS.get(variant, dict(forward=True, emit_residual=True)))
+    blocks = fused_smoother.level_blocks(c, cfg)
+    active = _active_cells(blocks.tiles, device)
+    assert (active & ~c.solvable).any() and (~active).any()
+    xin = None if kw.get("x_is_zero") else x
+    got = fused_smoother.smooth_level(xin, b, c, cfg, blocks=blocks, **kw)
+    torch.cuda.synchronize()
+    want = fused_smoother.smooth_level_torch(xin, b, c, cfg, blocks=blocks, **kw)
+    for g, w in zip(got, want):
+        assert _rel(g[active], w[active]) <= 1e-5
+        assert (g[~active] == 0).all()
+    assert any((w[~active] != 0).any() for w in want)
+
+
+def test_chunk_kernel_refuses_wrong_tiles(device):
+    c, x, b, cfg = _level(device, torch.float32, None)
+    other = fused_smoother.level_blocks(c._replace(solvable=c.solvable[:31].contiguous()), cfg)
+    with pytest.raises(ValueError, match="tiles built for"):
+        fused_smoother.smooth_level(x, b, c, cfg, True, blocks=fused_smoother.level_blocks(c, cfg)._replace(tiles=other.tiles))
