@@ -19,20 +19,24 @@ Phases (any failure exits non-zero and prints no result line):
      fp32 edge weights: the chunk kernel's blocks (downstroke with zero
      start and residual, upstroke with and without the dot, warm, Jacobi)
      in the full-grid and band-restricted configurations, a lone `b` pass,
-     the bf16-field blocks, the CG step and the residual; each kernel's
-     time beside the plain version's at the fine-level shape, the fine
-     upstroke block beside its earlier times and its host time per call,
-     and the block at chunk depths 2, 4 and 8;
+     the bf16-field blocks, the CG step and the residual over the level's
+     active tiles (twice: bit-equal; the residual also with bf16 storage);
+     each kernel's time beside the plain version's at the fine-level shape,
+     the fine upstroke block, the CG step and the residual beside their
+     earlier times, the block's host time per call, and the block at chunk
+     depths 2, 4 and 8;
   5. the best of 3 solve times (mgpcg.solve, as bench.py times the JAX
      package), in turns: with the kernels, with kernel_mode="torch", with
      full-grid boundary passes (pallas_band_strip=0) and with bf16 fields
      (mg_field_dtype=bfloat16); the projections compared; a bf16-field
      projection with exact launch counts; one warm solve under
-     torch.profiler: device time by kernel, the device's busy share and
-     the host ops' time;
+     torch.profiler: device time by kernel, the device's busy share, the
+     host ops' time, and the sum_partials launches (one per V-cycle: the
+     CG step sums its own dot);
   6. a small fp64 projection on the card checked against a direct sparse
-     solve of the assembled system, and the fp64 chunk kernel against its
-     plain version on that hierarchy's smoothed levels;
+     solve of the assembled system, and the fp64 chunk kernel, CG step and
+     residual against their plain versions on that hierarchy's smoothed
+     levels;
   7. the frame loop: simulate.run, 4 frames at 256^3 in the CLI's --fp32
      configuration, launch counts exact over the whole run; per frame the
      iterations, residual, divergence, stage seconds and window reuse;
@@ -44,7 +48,8 @@ Phases (any failure exits non-zero and prints no result line):
      and its pressure against phase 3's; the halo kernels, the block-mesh
      smoother and CG step against their plain versions and the
      single-device kernels at every sharded level; their times beside
-     their bounds (and the F.pad + unfold gather as the library call); the
+     their bounds (and the F.pad + unfold gather as the library call), the
+     block-mesh CG step split into its gathers, step and scatters; the
      best of 3 solves, single device and block mesh in turns.
 Every kernel's entry in the kernels JSON has its launches on its path, its
 error against the plain version, its time, the plain version's, its bound
@@ -307,6 +312,10 @@ def main(argv=None) -> int:
         print(f"[3] L{lv} {tuple(hier.levels[lv].shape)}: {nb:,} band cells, "
               f"{nb / hier.levels[lv].diag.numel():.2%} of the level; chunk depth {tiles.depth}, "
               f"tile {tiles.core}, active tiles {na}/{nt} = {na / nt:.3f}")
+    cg_tiles = mgpcg.fine_tiles(setup.problem, blocks)
+    print(f"[3] CG step and residual at L0: tile {cg_tiles.core}, active tiles "
+          f"{cg_tiles.active.numel()}/{n_tiles(cg_tiles)} = {cg_tiles.active.numel() / n_tiles(cg_tiles):.3f} "
+          f"(the level's chunk-kernel tiles, built once per solve)")
     print(f"[3] liquid DOFs {ndof:,}; iterations {iters}; relative residual "
           f"{result.cg.relative_residual:.3e}; recomputed {float(result.residual_rel_l2):.3e} "
           f"(linf {float(result.residual_linf):.3e}); max divergence "
@@ -337,7 +346,7 @@ def main(argv=None) -> int:
     # by at most one bf16 ulp at the output's scale (plus the fp32 term).
     names = ("smoother", "smoother_band_strip", "smoother_bf16", "cg_step", "residual",
              "halo", "smoother_sharded", "cg_step_sharded")
-    errs = dict.fromkeys(names, 0.0)      # grids, absolute
+    errs = dict.fromkeys(names + ("residual_bf16",), 0.0)      # grids, absolute
     dot_errs = dict.fromkeys(names[:3] + ("cg_step", "smoother_sharded", "cg_step_sharded"), 0.0)  # dots, relative
 
     def check(name, what, got, want, tol=None):
@@ -418,23 +427,40 @@ def main(argv=None) -> int:
             torch.cuda.synchronize()
             want = fused_smoother.band_pass_torch(x, x.clone(), b, c, blk.band_cells, config.jacobi_damping)
             check("smoother_band_strip", f"L{lv} {tag} lone b pass", got, want, grid_tol)
-            r_got = fused_cg.residual(x, b, c.diag, c.ew0, c.ew1, c.ew2, mode="cuda")
+            # The residual over the level's tiles: fp32, twice (bit-equal),
+            # and with bf16 storage of b and r.
+            ops = (c.diag, c.ew0, c.ew1, c.ew2)
+            r_got = fused_cg.residual(x, b, *ops, mode="cuda", tiles=blk.tiles)
+            r_again = fused_cg.residual(x, b, *ops, mode="cuda", tiles=blk.tiles)
             torch.cuda.synchronize()
-            r_want = fused_cg.residual_torch(x, b, c.diag, c.ew0, c.ew1, c.ew2)
+            r_want = fused_cg.residual_torch(x, b, *ops)
             check("residual", f"L{lv} {tag}", r_got, r_want, grid_tol)
+            require(torch.equal(r_got, r_again), f"residual L{lv} {tag}: two calls differ")
+            r_got = fused_cg.residual(x, b.to(torch.bfloat16), *ops, mode="cuda", tiles=blk.tiles)
+            torch.cuda.synchronize()
+            check("residual_bf16", f"L{lv} {tag} bf16 storage", r_got,
+                  fused_cg.residual_torch(x, b.to(torch.bfloat16), *ops), None)
     fine = setup.problem.fine
     z, p = rand_field(fine), rand_field(fine)
     beta = torch.tensor(0.7371, dtype=torch.float32, device=dev)
-    got = fused_cg.search_matvec_dot(z, p, beta, fine.diag, fine.ew0, fine.ew1, fine.ew2, mode="cuda")
+    fine_ops = (fine.diag, fine.ew0, fine.ew1, fine.ew2)
+    got = fused_cg.search_matvec_dot(z, p, beta, *fine_ops, mode="cuda", tiles=cg_tiles)
+    again = fused_cg.search_matvec_dot(z, p, beta, *fine_ops, mode="cuda", tiles=cg_tiles)
     torch.cuda.synchronize()
-    want = fused_cg.search_matvec_dot_torch(z, p, beta, fine.diag, fine.ew0, fine.ew1, fine.ew2)
+    want = fused_cg.search_matvec_dot_torch(z, p, beta, *fine_ops)
     check("cg_step", "p'", got[0], want[0], grid_tol)
     check("cg_step", "Ap'", got[1], want[1], grid_tol)
     check("cg_step", "<p', Ap'>", got[2], want[2], dot_tol)
+    require(all(torch.equal(g, a) for g, a in zip(got, again)), "cg_step: two calls differ")
+    # Without tiles: built in the call from diag != 0, the same tiles here.
+    require(all(torch.equal(g, a) for g, a in zip(
+        got, fused_cg.search_matvec_dot(z, p, beta, *fine_ops, mode="cuda"))), "cg_step without tiles differs")
     print(f"[4] kernel vs plain: fp32 within {grid_tol:g} (grids) / {dot_tol:g} (dots) relative, "
           f"bf16 fields within one bf16 ulp at the output's scale; max abs grid errors "
           f"{ {k: errs[k] for k in names[:5]} }, max relative dot errors "
           f"{ {k: dot_errs[k] for k in names[:4]} }")
+    print(f"[4] CG step and residual: two calls on the same inputs bit-equal; bf16 residual storage within "
+          f"one bf16 ulp (max abs error {errs['residual_bf16']:.3e})")
     print(f"[4] band-restricted vs full-grid kernel blocks: max relative difference {band_vs_full:.3e}")
     print(f"[4] worst full-grid smoother case: {max(worst, key=worst.get)} at {max(worst.values()):.3e} relative")
 
@@ -462,11 +488,12 @@ def main(argv=None) -> int:
             cuda_ms(lambda: fused_smoother.smooth_level_torch(x0h, b0h, c0, config, False, emit_dot=True, blocks=blk0h), reps),
         ),
         "cg_step": (
-            cuda_ms(lambda: fused_cg.search_matvec_dot(z, p, beta, fine.diag, fine.ew0, fine.ew1, fine.ew2, mode="cuda"), reps),
-            cuda_ms(lambda: fused_cg.search_matvec_dot_torch(z, p, beta, fine.diag, fine.ew0, fine.ew1, fine.ew2), reps),
+            cuda_ms(lambda: fused_cg.search_matvec_dot(z, p, beta, *fine_ops, mode="cuda", tiles=cg_tiles), reps),
+            cuda_ms(lambda: fused_cg.search_matvec_dot_torch(z, p, beta, *fine_ops), reps),
         ),
         "residual": (
-            cuda_ms(lambda: fused_cg.residual(x0f, b0f, c0.diag, c0.ew0, c0.ew1, c0.ew2, mode="cuda"), reps),
+            cuda_ms(lambda: fused_cg.residual(x0f, b0f, c0.diag, c0.ew0, c0.ew1, c0.ew2, mode="cuda",
+                                              tiles=blk0.tiles), reps),
             cuda_ms(lambda: fused_cg.residual_torch(x0f, b0f, c0.diag, c0.ew0, c0.ew1, c0.ew2), reps),
         ),
     }
@@ -507,6 +534,11 @@ def main(argv=None) -> int:
               f"plain {p_ms:.4f} ms, bound over the solvable cells {bounds[name][0]:.4f} ms "
               f"({bounds[name][1]}), over the whole window {bounds_window[name][0]:.4f} ms "
               f"({bounds_window[name][1]}) [{card}]")
+    print(f"[4] CG step {times['cg_step'][0]:.4f} ms (recorded for PR 4's thread-per-cell kernel in PERF.md: "
+          f"0.4213 ms), residual {times['residual'][0]:.4f} ms (recorded: 0.2355 ms), over the tiles "
+          f"{cg_tiles.core}, {cg_tiles.active.numel()}/{n_tiles(cg_tiles)} active [{card}]")
+    cg_untiled_ms = cuda_ms(lambda: fused_cg.search_matvec_dot(z, p, beta, *fine_ops, mode="cuda"), reps)
+    print(f"[4] CG step without tiles (built in each call from diag != 0, a host sync): {cg_untiled_ms:.4f} ms [{card}]")
     print(f"[4] fine upstroke block + dot: band-restricted config {times['smoother_band_strip'][0]:.4f} ms "
           f"(recorded for the one-launch-per-pass kernel in PERF.md: 1.6521 ms), full-grid config "
           f"{times['smoother'][0]:.4f} ms (recorded: 1.9510 ms) [{card}]")
@@ -643,6 +675,12 @@ def main(argv=None) -> int:
               f"{total_ms / (solves['kernels'][0] * 1e3):.3f} of the unprofiled [{card}]")
         for key, (ms, count) in sorted(device_ms.items(), key=lambda kv: -kv[1][0])[:16]:
             print(f"[5]   {ms:9.3f} ms {count:6d} launches  {key[:110]}")
+        sums = sum(count for key, (_, count) in device_ms.items() if "sum_partials" in key)
+        steps = [(ms, count) for key, (ms, count) in device_ms.items() if "cg_step_kernel" in key]
+        print(f"[5] sum_partials launches {sums} (one per fine upstroke's dot: {iters + 1}; PR 4: 35 with the "
+              f"CG steps'); CG step kernel {sum(ms for ms, _ in steps):.3f} ms in "
+              f"{sum(n for _, n in steps)} launches (PR 4: 6.3 ms in 17) [{card}]")
+        require(sums == iters + 1, "sum_partials launches differ from one per V-cycle")
         print(f"[5] host side of the profiled solve: {sum(ms for ms, _ in host_ms.values()):.3f} ms of self "
               f"CPU time in profiled host ops (the Python between them is not counted); the largest:")
         for key, (ms, count) in sorted(host_ms.items(), key=lambda kv: -kv[1][0])[:10]:
@@ -701,8 +739,19 @@ def main(argv=None) -> int:
                 rel = rel_err(g, w)[1]
                 fp64_err = max(fp64_err, rel)
                 require(rel <= 1e-12, f"fp64 chunk kernel L{lv} {case} [{i}]: relative error {rel:.3e} > 1e-12")
-    print(f"[6] fp64 chunk kernel vs plain on the {m}^3 hierarchy's smoothed levels: max relative "
-          f"error {fp64_err:.3e} (limit 1e-12)")
+        # The fp64 CG step and residual over the level's tiles.
+        beta64 = torch.tensor(0.7371, dtype=torch.float64, device=dev)
+        ops = (c.diag, c.ew0, c.ew1, c.ew2)
+        got = fused_cg.search_matvec_dot(x, b, beta64, *ops, mode="cuda", tiles=blk.tiles)
+        got = got + (fused_cg.residual(x, b, *ops, mode="cuda", tiles=blk.tiles),)
+        torch.cuda.synchronize()
+        want = fused_cg.search_matvec_dot_torch(x, b, beta64, *ops) + (fused_cg.residual_torch(x, b, *ops),)
+        for i, (g, w) in enumerate(zip(got, want)):
+            rel = rel_err(g, w)[1]
+            fp64_err = max(fp64_err, rel)
+            require(rel <= 1e-12, f"fp64 CG step / residual L{lv} [{i}]: relative error {rel:.3e} > 1e-12")
+    print(f"[6] fp64 chunk kernel, CG step and residual vs plain on the {m}^3 hierarchy's smoothed levels: "
+          f"max relative error {fp64_err:.3e} (limit 1e-12)")
 
     # ---- 7. the frame loop --------------------------------------------------------------
     frames_n = 4
@@ -769,6 +818,9 @@ def main(argv=None) -> int:
               f"{t.active.numel()}/{n_tiles(t)} = {t.active.numel() / n_tiles(t):.3f}, "
               f"{t.band.numel():,} band cells")
     pre_cg = fused_sharded.prehalo_cg_coeffs(fine, mesh)
+    cg_tiles_s = fused_sharded.stacked_cg_tiles(pre_cg)
+    print(f"[8] L0 stacked grid, CG step: tile {cg_tiles_s.core}, active tiles {cg_tiles_s.active.numel()}/"
+          f"{n_tiles(cg_tiles_s)} = {cg_tiles_s.active.numel() / n_tiles(cg_tiles_s):.3f}")
     print(f"[8] stacked coefficients per solve: smoother "
           f"{sum(nbytes(*(t for t in pc if t is not None)) for pc in pre.values()) / 1e9:.3f} GB, "
           f"CG operator {nbytes(*pre_cg) / 1e9:.3f} GB")
@@ -831,7 +883,7 @@ def main(argv=None) -> int:
                 single_diff = max(single_diff, rel_err(g, s)[1])
                 require(rel_err(g, s)[1] <= tol, f"block-mesh {key} [{i}] differs from the single-device kernel")
     zf, pf = rand_field(fine), rand_field(fine)
-    got = fused_sharded.cg_step_sharded(zf, pf, beta, fine, config, mesh, prehaloed_cg=pre_cg)
+    got = fused_sharded.cg_step_sharded(zf, pf, beta, fine, config, mesh, prehaloed_cg=pre_cg, tiles=cg_tiles_s)
     torch.cuda.synchronize()
     pre_cg_t = fused_sharded.prehalo_cg_coeffs(fine, mesh, "torch")
     want = fused_sharded.cg_step_sharded(zf, pf, beta, fine, config_t, mesh, prehaloed_cg=pre_cg_t)
@@ -868,9 +920,24 @@ def main(argv=None) -> int:
             x0f, b0f, c0, config_t, False, mesh, prehaloed=pre0_t, emit_dot=True), reps),
     )
     times["cg_step_sharded"] = (
-        cuda_ms(lambda: fused_sharded.cg_step_sharded(z, p, beta, fine, config, mesh, prehaloed_cg=pre_cg), reps),
+        cuda_ms(lambda: fused_sharded.cg_step_sharded(
+            z, p, beta, fine, config, mesh, prehaloed_cg=pre_cg, tiles=cg_tiles_s), reps),
         cuda_ms(lambda: fused_sharded.cg_step_sharded(z, p, beta, fine, config_t, mesh, prehaloed_cg=pre_cg_t), reps),
     )
+    # The block-mesh step in its parts: the two gathers, the step on the
+    # stacked grid, the two scatters.
+    zh, ph = halo.halo_gather(z, geom0, "cuda"), halo.halo_gather(p, geom0, "cuda")
+    pnh, aph, _ = fused_cg.search_matvec_dot(zh, ph, beta, *pre_cg, mode="cuda", window=geom0.window,
+                                             tiles=cg_tiles_s)
+    parts_ms = {
+        "2 gathers": cuda_ms(lambda: (halo.halo_gather(z, geom0, "cuda"), halo.halo_gather(p, geom0, "cuda")), reps),
+        "step": cuda_ms(lambda: fused_cg.search_matvec_dot(
+            zh, ph, beta, *pre_cg, mode="cuda", window=geom0.window, tiles=cg_tiles_s), reps),
+        "2 scatters": cuda_ms(lambda: (halo.core_scatter(pnh, geom0, "cuda"), halo.core_scatter(aph, geom0, "cuda")),
+                              reps),
+    }
+    print(f"[8] block-mesh CG step {times['cg_step_sharded'][0]:.4f} ms (recorded for PR 4: 0.8618 ms): "
+          f"{', '.join(f'{k} {v:.4f} ms' for k, v in parts_ms.items())} [{card}]")
     p0 = pre[0]
     stacked0 = p0.band.numel()
     stacked_in = (p0.inv_diag, p0.ew0, p0.ew1, p0.ew2, p0.band)
@@ -949,6 +1016,9 @@ def main(argv=None) -> int:
         if name.startswith("smoother"):
             t = (sblk[0] if name == "smoother_sharded" else blk0h if name == "smoother_bf16" else blk0).tiles
             k.update(depth=t.depth, tile=list(t.core), active_tile_share=t.active.numel() / n_tiles(t))
+        if name.startswith(("cg_step", "residual")):
+            t = cg_tiles_s if name == "cg_step_sharded" else cg_tiles
+            k.update(tile=list(t.core), active_tile_share=t.active.numel() / n_tiles(t))
         if name in dot_errs:
             k["dot_max_rel_err"] = dot_errs[name]
     print(json.dumps({"kernels": kernels}))

@@ -8,8 +8,9 @@
 // with reads past the array edge taken as zero.
 //
 // Reductions never use float atomics: every kernel that emits a dot writes
-// one partial per block (a fixed shuffle tree inside the block), and
-// sum_partials adds the partials in a fixed order in one block, so a
+// one partial per block (a fixed shuffle tree inside the block), and the
+// partials are added in a fixed order -- by sum_partials in one block after
+// the chunk kernel, by the CG step's last block in the same launch -- so a
 // conjugate-gradient trajectory is reproducible from run to run.
 #pragma once
 
@@ -19,7 +20,7 @@
 
 namespace gmg {
 
-// Threads per block of every cell kernel; one partial per block.
+// Threads per block of the CG-step and residual kernels.
 constexpr int kBlock = 256;
 // Threads of the single block that sums the partials.
 constexpr int kSumBlock = 1024;
@@ -45,38 +46,10 @@ __device__ __forceinline__ void store_as(__nv_bfloat16* p, long long q, float v)
   p[q] = __float2bfloat16_rn(v);
 }
 
-// Cell coordinates of a linear index.
+// Cell coordinates.
 struct Cell {
   int i, j, k;
 };
-
-__device__ __forceinline__ Cell cell_of(long long idx, int ny, int nz) {
-  Cell c;
-  c.k = int(idx % nz);
-  long long t = idx / nz;
-  c.j = int(t % ny);
-  c.i = int(t / ny);
-  return c;
-}
-
-// Off-diagonal neighbour sum at `idx`, in the association order of
-// ops/stencil.neighbor_sum: axis 0 upper, axis 0 lower, axis 1 upper, ...
-// `val(q)` returns the field value at linear index q.
-template <typename T, typename E, typename F>
-__device__ __forceinline__ T neighbor_sum(F val, const E* e0, const E* e1,
-                                          const E* e2, long long idx, Cell c,
-                                          int nx, int ny, int nz) {
-  const long long sx = (long long)ny * nz;
-  const long long sy = nz;
-  T s = T(0);
-  if (c.i + 1 < nx) s += load_as<T>(e0, idx) * val(idx + sx);
-  if (c.i > 0) s += load_as<T>(e0, idx - sx) * val(idx - sx);
-  if (c.j + 1 < ny) s += load_as<T>(e1, idx) * val(idx + sy);
-  if (c.j > 0) s += load_as<T>(e1, idx - sy) * val(idx - sy);
-  if (c.k + 1 < nz) s += load_as<T>(e2, idx) * val(idx + 1);
-  if (c.k > 0) s += load_as<T>(e2, idx - 1) * val(idx - 1);
-  return s;
-}
 
 // Core window of a stacked block grid (parallel/halo.py): the haloed
 // blocks of a one-card block mesh lie one after another along x, each
@@ -111,10 +84,6 @@ __device__ __forceinline__ T block_sum(T v) {
     for (int off = 16; off > 0; off >>= 1) v += __shfl_down_sync(0xffffffffu, v, off);
   }
   return v;
-}
-
-inline unsigned int num_blocks(long long n) {
-  return (unsigned int)((n + kBlock - 1) / kBlock);
 }
 
 }  // namespace gmg

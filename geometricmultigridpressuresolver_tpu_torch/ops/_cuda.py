@@ -45,13 +45,12 @@ DTYPE_CODES = {torch.float32: 0, torch.float64: 1, torch.bfloat16: 2}
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
-    "gmg_block_size": ([], _I),
     "gmg_smooth_chunk": (
         [_I] * 6 + [ctypes.c_double] + [_P] * 12 + [_I, _P] + [_I] * 7 + [_P, _I, _P] + [_I] * 5 + [_P], _I
     ),
     "gmg_smooth_chunk_grid": ([_I] * 4, _I),
-    "gmg_cg_step": ([_I, _I] + [_P] * 10 + [_I, _I, _I] + [_I] * 5 + [_P], _I),
-    "gmg_residual": ([_I, _I, _I] + [_P] * 7 + [_I, _I, _I, _P], _I),
+    "gmg_cg_step": ([_I, _I] + [_P] * 12 + [_P, _I, _P, _I] + [_I] * 11 + [_P], _I),
+    "gmg_residual": ([_I, _I, _I] + [_P] * 7 + [_P, _I, _P, _I] + [_I] * 6 + [_P], _I),
     "gmg_sum_partials": ([_I, _P, ctypes.c_longlong, _P, _P], _I),
     "gmg_halo_gather": ([_I, _P, _P] + [_I] * 9 + [_P], _I),
     "gmg_core_scatter": ([_I, _P, _P] + [_I] * 9 + [_P], _I),
@@ -151,10 +150,6 @@ def library() -> ctypes.CDLL:
             _lib = lib
             build_info = BuildInfo(path, time.perf_counter() - t0, compiled, log)
         return _lib
-
-
-def block_size() -> int:
-    return int(library().gmg_block_size())
 
 
 def check(code: int, what: str) -> None:

@@ -3,10 +3,22 @@
 `search_matvec_dot` replaces ops/pallas_cg.py::fused_search_matvec_dot of
 the JAX package: p' = z + beta*p, Ap' = diag*p' - S(p') and <p', Ap'> in one
 pass.  `residual` replaces ops/pallas_cg.py::fused_residual:
-r = b - (diag*x - S(x)).  Both kernels are bound by device memory (about
-32 and 22 bytes per cell, see csrc/cg.cu); they read each input once, keep
-p' in registers for the stencil instead of storing and re-reading it, and
-reduce the dot in a fixed order without float atomics.
+r = b - (diag*x - S(x)).  Both kernels are bound by device memory.  As the
+Pallas kernels walk their active-slab lists, they do stencil work only on
+the active tiles of the level's `Tiles` (ops/fused_smoother.py: tiles of
+(8, 8, 32) cells holding a solvable cell, built once per solve) and store
+zeros on the dead ones, reading nothing there.  A CUDA block stages its
+tile's stencil input with a one-cell halo in shared memory -- p' formed
+once per cell as it loads, or x -- and the CG step's dot is summed in a
+fixed order in the same launch (its last block adds the per-tile partials
+in index order), with no float atomics and no second launch.
+
+Precondition, as `fused_smoother.smooth_level` states it: the fields are
+zero off the cells the tiles were built from (the solvable set), as every
+field of the solver is, and edge weights join only those cells.  Then the
+kernels equal the plain versions on every cell.  Otherwise the two agree on
+the active tiles, while the kernels' outputs are zero on the other tiles
+and the dot leaves them out.
 
 Each wrapper runs the kernel for a CUDA tensor and its plain version
 (`*_torch`) for a CPU tensor under ``mode="auto"``; ``mode="torch"`` always
@@ -87,10 +99,33 @@ def sum_partials(partials: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def num_partials(shape) -> int:
-    n = int(shape[0]) * int(shape[1]) * int(shape[2])
-    bs = _cuda.block_size()
-    return max(1, (n + bs - 1) // bs)
+def kernel_tiles(what: str, tiles, diag: torch.Tensor):
+    """The `Tiles` a kernel of this module runs over on the grid of `diag`:
+    `tiles`, checked against the grid, or (None) the tiles of the cells with
+    diag != 0, built here at the cost of a host sync.  Raises on tiles of
+    another grid or tile, or on tile lists the kernels cannot take."""
+    # Imported here: ops/fused_smoother.py imports this module.
+    from geometricmultigridpressuresolver_tpu_torch.ops import fused_smoother
+
+    if tiles is None:
+        return fused_smoother.level_tiles(diag != 0, torch.zeros(0, dtype=torch.int32, device=diag.device))
+    if tuple(tiles.shape) != tuple(diag.shape):
+        raise ValueError(f"{what}: tiles built for {tuple(tiles.shape)}, not {tuple(diag.shape)}")
+    if tuple(tiles.core) != fused_smoother.CHUNK_TILE:
+        raise ValueError(f"{what}: tiles of {tuple(tiles.core)}, the kernels take {fused_smoother.CHUNK_TILE}")
+    gx, gy, gz = fused_smoother.tile_grid(tiles.shape, tiles.core)
+    for name, t in (("active tiles", tiles.active), ("dead tiles", tiles.dead), ("ticket", tiles.ticket)):
+        _cuda.check_cuda_operands(what, (t.numel(),), **{name.replace(" ", "_"): t})
+        if t.dtype != torch.int32:
+            raise TypeError(f"{what}: {name} must be int32, got {t.dtype}")
+    if tiles.active.numel() + tiles.dead.numel() != gx * gy * gz or tiles.ticket.numel() != 1:
+        raise ValueError(f"{what}: tiles do not cover the {gx}x{gy}x{gz} tiles of {tuple(tiles.shape)}")
+    return tiles
+
+
+def tile_args(tiles) -> tuple:
+    """The kernels' tile arguments: active, n_active, dead, n_dead."""
+    return (_cuda.ptr(tiles.active), tiles.active.numel(), _cuda.ptr(tiles.dead), tiles.dead.numel())
 
 
 def search_matvec_dot_torch(z, p, beta, diag, ew0, ew1, ew2, window: CoreWindow | None = None):
@@ -101,14 +136,19 @@ def search_matvec_dot_torch(z, p, beta, diag, ew0, ew1, ew2, window: CoreWindow 
 
 
 def search_matvec_dot(
-    z, p, beta, diag, ew0, ew1, ew2, mode: str = "auto", window: CoreWindow | None = None
+    z, p, beta, diag, ew0, ew1, ew2, mode: str = "auto", window: CoreWindow | None = None, tiles=None
 ):
     """Returns (p', A p', <p', A p'>) with p' = z + beta*p.
 
     `beta` is a 0-d tensor on z's device (the kernel reads it by pointer, so
     the CG loop launches the step without a host read).  Fields share one
     float dtype; the edge weights may be narrower.  With `window` the grids
-    are a stacked block grid and the dot runs over its core cells.
+    are a stacked block grid and the dot runs over its core cells.  `tiles`
+    are the grid's `fused_smoother.Tiles`, built once per solve from the
+    solvable set (on a stacked grid, the cells with diag != 0); None builds
+    them here from diag != 0, a host sync per call.  See the module
+    docstring for the precondition under which kernel and plain version
+    agree on every cell.
     """
     if not _cuda.use_kernel(mode, z):
         return search_matvec_dot_torch(z, p, beta, diag, ew0, ew1, ew2, window)
@@ -117,9 +157,11 @@ def search_matvec_dot(
     _cuda.check_cuda_operands(what, z.shape, z=z, p=p, diag=diag, ew0=ew0, ew1=ew1, ew2=ew2)
     _cuda.check_cuda_operands(what, (), beta=beta)
     _cuda.check_dtypes(what, z, p, diag, beta, ews=(ew0, ew1, ew2))
+    tiles = kernel_tiles(what, tiles, diag)
     p_out = torch.empty_like(z)
     ap_out = torch.empty_like(z)
-    partials = torch.empty(num_partials(z.shape), dtype=z.dtype, device=z.device)
+    # The dot, then one partial per active tile.
+    scratch = torch.empty(1 + tiles.active.numel(), dtype=z.dtype, device=z.device)
     nx, ny, nz = z.shape
     lib = _cuda.library()
     _cuda.check(
@@ -127,13 +169,14 @@ def search_matvec_dot(
             _cuda.dtype_code(z, what), _cuda.dtype_code(ew0, what),
             _cuda.ptr(z), _cuda.ptr(p), _cuda.ptr(beta), _cuda.ptr(diag),
             _cuda.ptr(ew0), _cuda.ptr(ew1), _cuda.ptr(ew2),
-            _cuda.ptr(p_out), _cuda.ptr(ap_out), _cuda.ptr(partials),
-            nx, ny, nz, *window_args(window, z.shape), _cuda.stream_of(z),
+            _cuda.ptr(p_out), _cuda.ptr(ap_out), _cuda.ptr(scratch[1:]), _cuda.ptr(scratch),
+            _cuda.ptr(tiles.ticket), *tile_args(tiles), nx, ny, nz, *tiles.core,
+            *window_args(window, z.shape), _cuda.stream_of(z),
         ),
         "gmg_cg_step",
     )
     (STEP_LAUNCHES if window is None else SHARDED_STEP_LAUNCHES).count += 1
-    return p_out, ap_out, sum_partials(partials)
+    return p_out, ap_out, scratch[0]
 
 
 def residual_torch(x, b, diag, ew0, ew1, ew2):
@@ -142,13 +185,15 @@ def residual_torch(x, b, diag, ew0, ew1, ew2):
     return (b - (diag * x - neighbor_sum_ew(x, ew0, ew1, ew2))).to(b.dtype)
 
 
-def residual(x, b, diag, ew0, ew1, ew2, mode: str = "auto"):
+def residual(x, b, diag, ew0, ew1, ew2, mode: str = "auto", tiles=None):
     """r = b - A x.  Zero on non-solvable cells when x and b are (zero diag
     and edge weights there).
 
     x and diag share the compute dtype; b and the result share the storage
     dtype, which is the compute dtype or, for a float32 x, bfloat16 (the
     narrow V-cycle fields: r is formed from the unrounded x, then narrowed).
+    `tiles` as for `search_matvec_dot` (None: built here from diag != 0, a
+    host sync), under the same precondition.
     """
     if not _cuda.use_kernel(mode, x):
         return residual_torch(x, b, diag, ew0, ew1, ew2)
@@ -156,6 +201,7 @@ def residual(x, b, diag, ew0, ew1, ew2, mode: str = "auto"):
     _cuda.check_cuda_operands(what, x.shape, x=x, b=b, diag=diag, ew0=ew0, ew1=ew1, ew2=ew2)
     _cuda.check_dtypes(what, x, diag, ews=(ew0, ew1, ew2))
     _cuda.check_storage(what, x.dtype, b)
+    tiles = kernel_tiles(what, tiles, diag)
     r = torch.empty_like(b)
     nx, ny, nz = x.shape
     lib = _cuda.library()
@@ -165,7 +211,7 @@ def residual(x, b, diag, ew0, ew1, ew2, mode: str = "auto"):
             _cuda.dtype_code(ew0, what),
             _cuda.ptr(x), _cuda.ptr(b), _cuda.ptr(diag),
             _cuda.ptr(ew0), _cuda.ptr(ew1), _cuda.ptr(ew2), _cuda.ptr(r),
-            nx, ny, nz, _cuda.stream_of(x),
+            *tile_args(tiles), nx, ny, nz, *tiles.core, _cuda.stream_of(x),
         ),
         "gmg_residual",
     )

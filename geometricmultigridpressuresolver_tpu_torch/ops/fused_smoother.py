@@ -197,26 +197,31 @@ def tile_occupancy(cells: torch.Tensor, core) -> torch.Tensor:
 
 
 class Tiles(NamedTuple):
-    """The chunk kernel's work lists of one level of `shape`: passes per
-    launch, the tile, the active tiles (x-major indices, ascending) and the
-    band cells (flat indices, ascending; every `b` pass runs over them
-    alone)."""
+    """The kernels' work lists of one level of `shape`, built once per solve:
+    passes per chunk-kernel launch, the tile, the active tiles and the dead
+    ones (x-major indices, ascending), the band cells (flat indices,
+    ascending; every `b` pass of the chunk kernel runs over them alone), and
+    the CG step's ticket (ops/fused_cg.py: one int32, zero between launches;
+    the launches that use it go to one stream at a time)."""
 
     shape: tuple[int, int, int]
     depth: int
     core: tuple[int, int, int]
     active: torch.Tensor  # int32
     band: torch.Tensor    # int32
+    dead: torch.Tensor    # int32
+    ticket: torch.Tensor  # int32, (1,)
 
 
 def level_tiles(cells: torch.Tensor, band: torch.Tensor, depth: int | None = None) -> Tiles:
-    """`Tiles` of a level whose cells a pass can change are `cells` (bool)
+    """`Tiles` of a level whose cells a kernel can change are `cells` (bool)
     and whose band cells are the list `band` (`band_cells`), over
     `CHUNK_TILE`.  `depth` overrides `CHUNK_DEPTH`."""
     depth = CHUNK_DEPTH if depth is None else int(depth)
     occ = tile_occupancy(cells, CHUNK_TILE).reshape(-1)
     ids = torch.arange(occ.numel(), dtype=torch.int32, device=occ.device)
-    return Tiles(tuple(cells.shape), depth, CHUNK_TILE, ids[occ], band)
+    ticket = torch.zeros(1, dtype=torch.int32, device=occ.device)
+    return Tiles(tuple(cells.shape), depth, CHUNK_TILE, ids[occ], band, ids[~occ], ticket)
 
 
 class LevelBlocks(NamedTuple):

@@ -30,6 +30,8 @@ fine level on a (2, 2, 1) mesh) that a multi-card run pays.
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 
 from geometricmultigridpressuresolver_tpu_torch.ops import fused_cg, fused_smoother
@@ -83,6 +85,24 @@ def prehalo_coeffs(c: LevelCoeffs, mesh: BlockMesh, mode: str = "auto") -> Level
     )
 
 
+class ShardedBlocks(NamedTuple):
+    """A sharded level's solve-invariant data: its coefficients as stacked
+    haloed blocks (`prehalo_coeffs`), their `stacked_blocks`, and the active
+    tiles of the level's own grid (`tiles`, for the residual kernel of an
+    unfused downstroke), as `LevelBlocks.tiles` are a single-device level's."""
+
+    prehaloed: LevelCoeffs
+    blocks: fused_smoother.LevelBlocks
+    tiles: fused_smoother.Tiles
+
+
+def sharded_blocks(c: LevelCoeffs, mesh: BlockMesh, mode: str = "auto") -> ShardedBlocks:
+    """`ShardedBlocks` of level `c` on `mesh`, built once per solve."""
+    hc = prehalo_coeffs(c, mesh, mode)
+    tiles = fused_smoother.level_tiles(c.solvable, fused_smoother.band_cells(c.band))
+    return ShardedBlocks(hc, stacked_blocks(hc), tiles)
+
+
 def stacked_blocks(hc: LevelCoeffs) -> fused_smoother.LevelBlocks:
     """The smoother's `LevelBlocks` of a stacked grid (`prehalo_coeffs`),
     built once per solve: full-grid plain passes (no band-cell list) and the
@@ -100,13 +120,22 @@ def prehalo_cg_coeffs(c: LevelCoeffs, mesh: BlockMesh, mode: str = "auto") -> tu
     return tuple(halo.halo_gather(a, geom, mode) for a in (c.diag, c.ew0, c.ew1, c.ew2))
 
 
-def cg_step_sharded(z, p, beta, c: LevelCoeffs, config, mesh: BlockMesh, prehaloed_cg=None):
+def stacked_cg_tiles(prehaloed_cg: tuple) -> fused_smoother.Tiles:
+    """The CG step's tiles of a stacked grid (`prehalo_cg_coeffs`), built
+    once per solve: those whose core holds a cell with diag != 0 (the
+    stacked coefficients carry no `solvable`); no band cells."""
+    diag = prehaloed_cg[0]
+    return fused_smoother.level_tiles(diag != 0, torch.zeros(0, dtype=torch.int32, device=diag.device))
+
+
+def cg_step_sharded(z, p, beta, c: LevelCoeffs, config, mesh: BlockMesh, prehaloed_cg=None, tiles=None):
     """Block-mesh CG step: (p' = z + beta p, A p', <p', A p'>).
 
     Gathers z and p into the stacked layout, runs one CG-step launch over
     it with the core window, scatters p' and A p' back, and sums the dot
     over the cores in a fixed order.  `prehaloed_cg` is
-    `prehalo_cg_coeffs(c, mesh)` (built here when None).
+    `prehalo_cg_coeffs(c, mesh)` and `tiles` `stacked_cg_tiles(prehaloed_cg)`
+    (built here when None).
     """
     mode = config.kernel_mode
     geom = halo.geometry(mesh, z.shape)
@@ -114,7 +143,7 @@ def cg_step_sharded(z, p, beta, c: LevelCoeffs, config, mesh: BlockMesh, prehalo
         prehaloed_cg = prehalo_cg_coeffs(c, mesh, mode)
     pn, ap, dot = fused_cg.search_matvec_dot(
         halo.halo_gather(z, geom, mode), halo.halo_gather(p, geom, mode), beta,
-        *prehaloed_cg, mode=mode, window=geom.window,
+        *prehaloed_cg, mode=mode, window=geom.window, tiles=tiles,
     )
     return halo.core_scatter(pn, geom, mode), halo.core_scatter(ap, geom, mode), dot
 

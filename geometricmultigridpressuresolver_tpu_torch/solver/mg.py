@@ -11,8 +11,8 @@
     smoothing-only cycle when the hierarchy has one level.
   * hierarchy_block_lists: each smoothed level's solve-invariant smoother
     data (band-cell list, narrowed coefficients and active tiles, or a
-    sharded level's stacked haloed coefficients and their tiles), built
-    once per solve.
+    sharded level's stacked haloed coefficients and their tiles, with the
+    active tiles of its own grid), built once per solve.
   * level_flags: with a block mesh (`parallel.mesh.BlockMesh`), which
     levels run the block-mesh smoother (`parallel.fused_sharded`).
 
@@ -276,9 +276,10 @@ def level_field_dtypes(hier: MGHierarchy, config: SolverConfig, flags) -> tuple[
 
 def hierarchy_block_lists(hier: MGHierarchy, config: SolverConfig, mesh=None):
     """Per-level solve-invariant smoother data of the smoothed levels:
-    `ops.fused_smoother.LevelBlocks` on single-device levels, the stacked
-    haloed coefficients and their blocks (`fused_sharded.prehalo_coeffs`,
-    `fused_sharded.stacked_blocks`) on sharded ones, None for the coarsest.
+    `ops.fused_smoother.LevelBlocks` on single-device levels,
+    `fused_sharded.ShardedBlocks` (the stacked haloed coefficients and their
+    blocks) on sharded ones, None for the coarsest.  Either kind's `tiles`
+    are the active tiles of the level's own grid.
     A CG loop builds this once and passes it to every `v_cycle` (JAX
     mg.py:729-768)."""
     flags = level_flags(hier, config, mesh)
@@ -289,8 +290,7 @@ def hierarchy_block_lists(hier: MGHierarchy, config: SolverConfig, mesh=None):
         if level not in smoothed:
             out.append(None)
         elif flags[level] == "sharded":
-            hc = fused_sharded.prehalo_coeffs(c, mesh, config.kernel_mode)
-            out.append((hc, fused_sharded.stacked_blocks(hc)))
+            out.append(fused_sharded.sharded_blocks(c, mesh, config.kernel_mode))
         else:
             out.append(fused_smoother.level_blocks(c, config, fdts[level]))
     return tuple(out)
@@ -332,9 +332,9 @@ def v_cycle(
     def smooth(level, xl, rhs_l, forward, **kw):
         c = hier.levels[level]
         if flags[level] == "sharded":
-            hc, blocks = block_lists[level]
+            sb = block_lists[level]
             return fused_sharded.smooth_level_sharded(
-                xl, rhs_l, c, config, forward, mesh, prehaloed=hc, blocks=blocks, **kw
+                xl, rhs_l, c, config, forward, mesh, prehaloed=sb.prehaloed, blocks=sb.blocks, **kw
             )
         return fused_smoother.smooth_level(xl, rhs_l, c, config, forward, blocks=block_lists[level], **kw)
 
@@ -365,7 +365,7 @@ def v_cycle(
             # In the hierarchy's dtype, as the JAX package forms it here.
             r = fused_cg.residual(
                 xl.to(dtype), rhs[level].to(dtype), c.diag, c.ew0, c.ew1, c.ew2,
-                mode=config.kernel_mode,
+                mode=config.kernel_mode, tiles=block_lists[level].tiles,
             )
         sols[level] = xl
         rhs[level + 1] = transfer.restrict(r, hier.levels[level + 1].solvable).to(vdt[level + 1])

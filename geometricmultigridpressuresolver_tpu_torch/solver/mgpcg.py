@@ -20,7 +20,7 @@ import torch
 
 from geometricmultigridpressuresolver_tpu_torch import device as device_mod
 from geometricmultigridpressuresolver_tpu_torch.config import SolverConfig
-from geometricmultigridpressuresolver_tpu_torch.ops import fused_cg, stencil
+from geometricmultigridpressuresolver_tpu_torch.ops import fused_cg, fused_smoother, stencil
 from geometricmultigridpressuresolver_tpu_torch.parallel import fused_sharded
 from geometricmultigridpressuresolver_tpu_torch.solver import cg as cg_mod
 from geometricmultigridpressuresolver_tpu_torch.solver import mg as mg_mod
@@ -86,14 +86,27 @@ def _finish_problem(hier: mg_mod.MGHierarchy, fine, fine_full: bool) -> PoissonP
     return PoissonProblem(fine=fine_coeffs, hier=hier)
 
 
-def fine_residual(problem: PoissonProblem, config: SolverConfig):
-    """`residual(x, b)`: the masked b - A x of the finest CG operator, through
-    the residual kernel on CUDA tensors."""
+def fine_tiles(problem: PoissonProblem, block_lists=None) -> fused_smoother.Tiles:
+    """The active tiles of the finest CG operator's grid, for the CG-step
+    and residual kernels: those of the V-cycle's `block_lists`
+    (`mg.hierarchy_block_lists`) when given, else built here (a host sync)."""
+    if block_lists is not None:
+        return block_lists[0].tiles
     fine = problem.fine
+    return fused_smoother.level_tiles(fine.solvable, fused_smoother.band_cells(fine.band))
+
+
+def fine_residual(problem: PoissonProblem, config: SolverConfig, tiles=None):
+    """`residual(x, b)`: the masked b - A x of the finest CG operator, through
+    the residual kernel on CUDA tensors over `tiles` (`fine_tiles`, built
+    here when None)."""
+    fine = problem.fine
+    if tiles is None:
+        tiles = fine_tiles(problem)
 
     def residual(x, b):
         r = fused_cg.residual(
-            x, b, fine.diag, fine.ew0, fine.ew1, fine.ew2, mode=config.kernel_mode
+            x, b, fine.diag, fine.ew0, fine.ew1, fine.ew2, mode=config.kernel_mode, tiles=tiles
         )
         return torch.where(fine.solvable, r, torch.zeros_like(r))
 
@@ -118,24 +131,31 @@ def solve(
     if mesh is not None:
         fused_sharded.check_device(mesh, rhs)
 
+    # Band-cell lists, narrowed coefficients, active tiles and sharded
+    # levels' stacked coefficients: once per solve.
+    blocks = None
+    if config.use_mg_preconditioner:
+        blocks = mg_mod.hierarchy_block_lists(problem.hier, config, mesh)
+    tiles = fine_tiles(problem, blocks)
+
     if mg_mod.level_flags(problem.hier, config, mesh)[0] == "sharded":
-        # The operator's stacked haloed blocks: once per solve.
+        # The operator's stacked haloed blocks and their tiles: once per solve.
         fine_halo = fused_sharded.prehalo_cg_coeffs(fine, mesh, config.kernel_mode)
+        halo_tiles = fused_sharded.stacked_cg_tiles(fine_halo)
 
         def step_p(z, p, beta):
-            return fused_sharded.cg_step_sharded(z, p, beta, fine, config, mesh, prehaloed_cg=fine_halo)
+            return fused_sharded.cg_step_sharded(
+                z, p, beta, fine, config, mesh, prehaloed_cg=fine_halo, tiles=halo_tiles
+            )
     else:
         def step_p(z, p, beta):
             return fused_cg.search_matvec_dot(
-                z, p, beta, fine.diag, fine.ew0, fine.ew1, fine.ew2, mode=config.kernel_mode
+                z, p, beta, fine.diag, fine.ew0, fine.ew1, fine.ew2, mode=config.kernel_mode,
+                tiles=tiles,
             )
 
     preconditioner_dot = None
     if config.use_mg_preconditioner:
-        # Band-cell lists, narrowed coefficients and sharded levels' stacked
-        # coefficients: once per solve.
-        blocks = mg_mod.hierarchy_block_lists(problem.hier, config, mesh)
-
         def preconditioner(r):
             return mg_mod.v_cycle(
                 problem.hier, None, r.to(mg_dtype), config, block_lists=blocks, mesh=mesh
@@ -153,7 +173,7 @@ def solve(
 
     return cg_mod.solve_pcg_fused(
         step_p,
-        fine_residual(problem, config),
+        fine_residual(problem, config, tiles),
         preconditioner,
         rhs.to(sd),
         fine.solvable,

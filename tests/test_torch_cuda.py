@@ -115,17 +115,18 @@ def test_smoother_kernel_matches_plain(device, dtype, ew_dtype, grid_tol, dot_to
 
 @pytest.mark.parametrize("dtype, ew_dtype, grid_tol, dot_tol", CASES)
 def test_cg_step_and_residual_kernels_match_plain(device, dtype, ew_dtype, grid_tol, dot_tol):
+    """With the tiles a solve passes, and without tiles (built in the call
+    from diag != 0: the same tiles here, so the same bits)."""
     c, z, p, _ = _level(device, dtype, ew_dtype)
     beta = torch.tensor(0.37, dtype=dtype, device=device)
-    ops = (c.diag, c.ew0, c.ew1, c.ew2)
-    got = fused_cg.search_matvec_dot(z, p, beta, *ops, mode="cuda")
-    torch.cuda.synchronize()
-    want = fused_cg.search_matvec_dot_torch(z, p, beta, *ops)
-    assert _rel(got[0], want[0]) <= grid_tol and _rel(got[1], want[1]) <= grid_tol
-    assert _rel(got[2], want[2]) <= dot_tol
-    r = fused_cg.residual(z, p, *ops, mode="cuda")
-    torch.cuda.synchronize()
-    assert _rel(r, fused_cg.residual_torch(z, p, *ops)) <= grid_tol
+    tiles = _cg_tiles(c)
+    grid = fused_smoother.tile_grid(c.shape, tiles.core)
+    assert 0 < tiles.active.numel() < grid[0] * grid[1] * grid[2]
+    assert torch.equal(tiles.active, fused_smoother.level_tiles(c.diag != 0, tiles.band).active)
+    with_tiles = _check_cg_kernels(c, z, p, beta, tiles, grid_tol, dot_tol)
+    without = _check_cg_kernels(c, z, p, beta, None, grid_tol, dot_tol)
+    for g, w in zip(with_tiles[0] + (with_tiles[1],), without[0] + (without[1],)):
+        assert torch.equal(g, w)
 
 
 def test_wrappers_refuse_bad_operands(device):
@@ -505,3 +506,163 @@ def test_chunk_kernel_refuses_wrong_tiles(device):
     other = fused_smoother.level_blocks(c._replace(solvable=c.solvable[:31].contiguous()), cfg)
     with pytest.raises(ValueError, match="tiles built for"):
         fused_smoother.smooth_level(x, b, c, cfg, True, blocks=fused_smoother.level_blocks(c, cfg)._replace(tiles=other.tiles))
+
+
+def _cg_tiles(c):
+    return fused_smoother.level_tiles(c.solvable, fused_smoother.band_cells(c.band))
+
+
+def _check_cg_kernels(c, z, p, beta, tiles, grid_tol, dot_tol):
+    """The CG step and the residual with `tiles` against their plain versions."""
+    ops = (c.diag, c.ew0, c.ew1, c.ew2)
+    before = fused_cg.STEP_LAUNCHES.count, fused_cg.RESIDUAL_LAUNCHES.count
+    got = fused_cg.search_matvec_dot(z, p, beta, *ops, mode="cuda", tiles=tiles)
+    r = fused_cg.residual(z, p, *ops, mode="cuda", tiles=tiles)
+    torch.cuda.synchronize()
+    assert (fused_cg.STEP_LAUNCHES.count - before[0], fused_cg.RESIDUAL_LAUNCHES.count - before[1]) == (1, 1)
+    want = fused_cg.search_matvec_dot_torch(z, p, beta, *ops)
+    assert _rel(got[0], want[0]) <= grid_tol and _rel(got[1], want[1]) <= grid_tol
+    assert _rel(got[2], want[2]) <= dot_tol
+    assert _rel(r, fused_cg.residual_torch(z, p, *ops)) <= grid_tol
+    return got, r
+
+
+@pytest.mark.parametrize("shape", [(37, 29, 45), (20, 18, 20), (9, 70, 130), (1, 1, 1)])
+@pytest.mark.parametrize("dtype, ew_dtype, grid_tol, dot_tol", CASES)
+def test_cg_kernels_on_ragged_shapes(device, shape, dtype, ew_dtype, grid_tol, dot_tol):
+    """The tiled CG step and residual on shapes the (8, 8, 32) tiles do not
+    divide, nz below the tile's z extent, a corner of dead tiles."""
+    c, z, p = _random_level(device, shape, dtype, ew_dtype, seed=sum(shape) + 1)
+    beta = torch.tensor(0.37, dtype=dtype, device=device)
+    got, r = _check_cg_kernels(c, z, p, beta, _cg_tiles(c), grid_tol, dot_tol)
+    for g in (got[0], got[1], r):
+        assert (g[~c.solvable] == 0).all()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_cg_kernels_dead_tiles_only(device, dtype):
+    """No active tile: every output zero and the dot exactly 0, with inputs
+    that are never read (NaN)."""
+    c, _, _ = _random_level(device, (33, 20, 70), dtype, None)
+    tiles = fused_smoother.level_tiles(torch.zeros_like(c.solvable), fused_smoother.band_cells(c.band))
+    assert tiles.active.numel() == 0
+    junk = torch.full(c.shape, float("nan"), dtype=dtype, device=device)
+    beta = torch.tensor(0.5, dtype=dtype, device=device)
+    pn, ap, dot = fused_cg.search_matvec_dot(junk, junk, beta, c.diag, c.ew0, c.ew1, c.ew2, mode="cuda", tiles=tiles)
+    r = fused_cg.residual(junk, junk, c.diag, c.ew0, c.ew1, c.ew2, mode="cuda", tiles=tiles)
+    torch.cuda.synchronize()
+    for g in (pn, ap, r):
+        assert torch.equal(g, torch.zeros_like(g))
+    assert float(dot) == 0.0
+
+
+def test_cg_kernels_with_fields_off_the_solvable_set(device):
+    """The wrappers' precondition: fields zero off the solvable set.  With
+    fields nonzero there, the kernels still equal the plain versions on the
+    active tiles, store zeros on the others, and the dot is the plain dot
+    over the active tiles."""
+    c, _, _ = _random_level(device, (40, 36, 72), torch.float32, None, seed=5)
+    gen = torch.Generator(device=device).manual_seed(7)
+    z = torch.randn(c.shape, generator=gen, device=device)
+    p = torch.randn(c.shape, generator=gen, device=device)
+    beta = torch.tensor(0.37, device=device)
+    tiles = _cg_tiles(c)
+    active = _active_cells(tiles, device)
+    assert (active & ~c.solvable).any() and (~active).any()
+    ops = (c.diag, c.ew0, c.ew1, c.ew2)
+    got = fused_cg.search_matvec_dot(z, p, beta, *ops, mode="cuda", tiles=tiles)
+    r = fused_cg.residual(z, p, *ops, mode="cuda", tiles=tiles)
+    torch.cuda.synchronize()
+    want = fused_cg.search_matvec_dot_torch(z, p, beta, *ops)
+    r_want = fused_cg.residual_torch(z, p, *ops)
+    for g, w in ((got[0], want[0]), (got[1], want[1]), (r, r_want)):
+        assert _rel(g[active], w[active]) <= 1e-5
+        assert (g[~active] == 0).all()
+    # The plain p' and r carry z + beta p and b there (A p' is zero off the
+    # solvable set whatever p' is: zero diag, no edge weights).
+    assert (want[0][~active] != 0).any() and (r_want[~active] != 0).any()
+    assert _rel(got[2], torch.sum((want[0] * want[1])[active])) <= 1e-4
+
+
+@pytest.mark.parametrize("dtype, ew_dtype, grid_tol, dot_tol", CASES)
+def test_cg_step_core_window_with_stacked_tiles(device, dtype, ew_dtype, grid_tol, dot_tol):
+    """The CG step over a stacked block grid with its stacked tiles and the
+    core window, against the plain masked dot and the cores' dot."""
+    c, x, b, cfg, mesh, geom = _sharded_level(device, dtype, ew_dtype)
+    hcg = fused_sharded.prehalo_cg_coeffs(c, mesh)
+    tiles = fused_sharded.stacked_cg_tiles(hcg)
+    xh, bh = halo.halo_gather(x, geom), halo.halo_gather(b, geom)
+    beta = torch.tensor(0.37, dtype=dtype, device=device)
+    got = fused_cg.search_matvec_dot(xh, bh, beta, *hcg, mode="cuda", window=geom.window, tiles=tiles)
+    torch.cuda.synchronize()
+    want = fused_cg.search_matvec_dot_torch(xh, bh, beta, *hcg, window=geom.window)
+    assert _rel(got[2], want[2]) <= dot_tol
+    cores = [halo.core_scatter(g, geom) for g in got[:2]]
+    for g, w in zip(cores, want[:2]):
+        assert _rel(g, halo.core_scatter(w, geom)) <= grid_tol
+    assert _rel(got[2], torch.sum(cores[0] * cores[1])) <= dot_tol
+    single = fused_sharded.cg_step_sharded(x, b, beta, c, cfg, mesh, prehaloed_cg=hcg, tiles=tiles)
+    torch.cuda.synchronize()
+    for g, s in zip(single, (cores[0], cores[1], got[2])):
+        assert torch.equal(g, s)
+
+
+@pytest.mark.parametrize("ew_dtype", [torch.bfloat16, None])
+def test_bf16_residual_kernel_with_tiles_matches_plain(device, ew_dtype):
+    """bf16 storage of b and r over float32 x, with tiles, on a ragged grid."""
+    c, x, b = _random_level(device, (37, 29, 45), torch.float32, ew_dtype, seed=9)
+    bh = b.to(torch.bfloat16)
+    got = fused_cg.residual(x, bh, c.diag, c.ew0, c.ew1, c.ew2, mode="cuda", tiles=_cg_tiles(c))
+    torch.cuda.synchronize()
+    want = fused_cg.residual_torch(x, bh, c.diag, c.ew0, c.ew1, c.ew2)
+    assert got.dtype == want.dtype == torch.bfloat16
+    assert float((got.double() - want.double()).abs().max()) <= _bf16_bound(want)
+    assert (got[~c.solvable] == 0).all()
+
+
+def test_cg_kernels_refuse_wrong_tiles(device):
+    c, z, p, _ = _level(device, torch.float32, None)
+    ops = (c.diag, c.ew0, c.ew1, c.ew2)
+    beta = torch.tensor(0.5, device=device)
+    tiles = _cg_tiles(c)
+    other = _cg_tiles(c._replace(solvable=c.solvable[:31].contiguous()))
+    bad = {
+        "tiles built for": (ValueError, other),
+        "tiles of": (ValueError, tiles._replace(core=(8, 8, 16))),
+        "must be int32": (TypeError, tiles._replace(active=tiles.active.long())),
+        "do not cover": (ValueError, tiles._replace(active=tiles.active[1:])),
+        "is on cpu": (ValueError, tiles._replace(dead=tiles.dead.cpu())),
+    }
+    for match, (err, t) in bad.items():
+        with pytest.raises(err, match=match):
+            fused_cg.search_matvec_dot(z, p, beta, *ops, mode="cuda", tiles=t)
+        with pytest.raises(err, match=match):
+            fused_cg.residual(z, p, *ops, mode="cuda", tiles=t)
+
+
+def test_cg_kernels_are_deterministic(device):
+    """Two launches on the same inputs give the same bits (the dot is summed
+    in index order by the last block, no float atomics), and two fp32 solves
+    give the same residual history."""
+    c, z, p = _random_level(device, (96, 80, 160), torch.float32, None, seed=11)
+    beta = torch.tensor(0.37, device=device)
+    tiles = _cg_tiles(c)
+    ops = (c.diag, c.ew0, c.ew1, c.ew2)
+    first = fused_cg.search_matvec_dot(z, p, beta, *ops, mode="cuda", tiles=tiles)
+    first_r = fused_cg.residual(z, p, *ops, mode="cuda", tiles=tiles)
+    for _ in range(3):
+        again = fused_cg.search_matvec_dot(z, p, beta, *ops, mode="cuda", tiles=tiles)
+        again_r = fused_cg.residual(z, p, *ops, mode="cuda", tiles=tiles)
+        for g, w in zip(first + (first_r,), again + (again_r,)):
+            assert torch.equal(g, w)
+    assert int(tiles.ticket) == 0
+    cfg = SolverConfig(solve_dtype=torch.float32, record_residuals=True)
+    labels, weights, mg_levels = _sine_domain()
+    problem = mgpcg.build_problem(labels, weights, mg_levels, cfg, device=device)
+    gen = torch.Generator(device=device).manual_seed(3)
+    rhs = torch.where(problem.fine.solvable, torch.randn(problem.fine.shape, generator=gen, device=device), 0)
+    a = mgpcg.solve(problem, rhs, config=cfg)
+    b = mgpcg.solve(problem, rhs, config=cfg)
+    assert a.converged and a.iterations == b.iterations > 0
+    history = [r.residual_history[: r.iterations + 1] for r in (a, b)]
+    assert torch.equal(*history) and torch.equal(a.x, b.x)
