@@ -36,11 +36,15 @@ Phases (any failure exits non-zero and prints no result line):
   6. a small fp64 projection on the card checked against a direct sparse
      solve of the assembled system, and the fp64 chunk kernel, CG step and
      residual against their plain versions on that hierarchy's smoothed
-     levels;
+     levels; the same projection with the Chebyshev smoother (degree 3),
+     which launches no chunk kernel and one CG step per iteration;
   7. the frame loop: simulate.run, 4 frames at 256^3 in the CLI's --fp32
-     configuration, launch counts exact over the whole run; per frame the
-     iterations, residual, divergence, stage seconds and window reuse;
-     frames 1-2 repeated with kernel_mode="torch" and compared;
+     configuration with a checkpoint every 2 frames, launch counts exact
+     over the whole run; per frame the iterations, residual, divergence,
+     stage seconds and window reuse; frames 1-2 repeated with
+     kernel_mode="torch" and compared; the frame-2 checkpoint loaded and
+     frames 3-4 resumed from it (phi bit-equal at frame 3), with the write
+     and read seconds and the bytes on disk against the raw bytes;
   8. the block-sharded path on a one-card block mesh (parallel.make_mesh(4),
      (2, 2, 1)): the per-level flags and stacked sizes; project(...,
      mesh=) with exact launch counts (block-mesh passes, halo gathers and
@@ -50,7 +54,14 @@ Phases (any failure exits non-zero and prints no result line):
      single-device kernels at every sharded level; their times beside
      their bounds (and the F.pad + unfold gather as the library call), the
      block-mesh CG step split into its gathers, step and scatters; the
-     best of 3 solves, single device and block mesh in turns.
+     best of 3 solves, single device and block mesh in turns;
+  9. the fused frame loop: simulate.run_fused, 4 frames in one chunk of 4
+     at 256^3 in phase 7's configuration, launch counts exact, iterations
+     and fields against phase 7's run(); seconds per frame of run() and
+     run_fused in turns, twice; the host syncs per frame of each path
+     (torch.cuda.set_sync_debug_mode); at frame 1's geometry the coarse
+     system built on the card against the host's, and the setup's host
+     coarse factorization against the on-card one, timed.
 Every kernel's entry in the kernels JSON has its launches on its path, its
 error against the plain version, its time, the plain version's, its bound
 (bytes over 3.35 TB/s or float32 operations over 67 TFLOP/s, the larger)
@@ -65,12 +76,17 @@ The last lines are the kernels JSON, the nvidia-smi line, and
 from __future__ import annotations
 
 import argparse
+import collections
 import dataclasses
 import json
 import re
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
+import warnings
+from pathlib import Path
 
 
 def fail(msg: str) -> None:
@@ -106,6 +122,28 @@ def cuda_ms(fn, reps: int) -> float:
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / reps
+
+
+def count_syncs(fn):
+    """(fn's result, Counter of the host syncs it made by source line), as
+    torch.cuda.set_sync_debug_mode reports them (every implicit sync: an
+    .item(), a copy to the host, a nonzero; explicit synchronize calls are
+    not counted)."""
+    import torch
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    sites = collections.Counter(
+        f"{w.filename.split('geometricmultigridpressuresolver_tpu_torch/')[-1]}:{w.lineno}"
+        for w in caught if "synchroniz" in str(w.message)
+    )
+    return out, sites
 
 
 def rel_err(got, want) -> tuple[float, float]:
@@ -242,7 +280,7 @@ def main(argv=None) -> int:
     from geometricmultigridpressuresolver_tpu_torch import parallel
     from geometricmultigridpressuresolver_tpu_torch.config import SolverConfig
     from geometricmultigridpressuresolver_tpu_torch.models import free_surface, sdf, simulate
-    from geometricmultigridpressuresolver_tpu_torch.ops import _cuda, fused_cg, fused_smoother
+    from geometricmultigridpressuresolver_tpu_torch.ops import _cuda, blas, fused_cg, fused_smoother, stencil
     from geometricmultigridpressuresolver_tpu_torch.parallel import fused_sharded, halo
     from geometricmultigridpressuresolver_tpu_torch.solver import mg, mgpcg
 
@@ -320,6 +358,19 @@ def main(argv=None) -> int:
           f"{result.cg.relative_residual:.3e}; recomputed {float(result.residual_rel_l2):.3e} "
           f"(linf {float(result.residual_linf):.3e}); max divergence "
           f"{float(result.max_divergence):.3e}, avg {float(result.avg_divergence):.3e}")
+    # The recomputed residual once more in fp64 from the fp32 solution (the
+    # fine operator's fp32 coefficients, upcast exactly): this tells the
+    # fp32 check's own rounding apart from the solve's error.
+    fine3 = setup.problem.fine
+    rhs3 = free_surface.embed_window(
+        free_surface.negative_divergence(setup.liquid_mask, velocity, setup.weights),
+        setup.window_start, setup.base_pads, setup.expanded_shape,
+    ).double()
+    f64 = stencil.LevelCoeffs(fine3.solvable, fine3.band, *(t.double() for t in fine3[2:]))
+    rel64 = float(blas.l2_norm(stencil.residual(result.cg.x.double(), rhs3, f64), fine3.solvable)
+                  / blas.l2_norm(rhs3, fine3.solvable))
+    print(f"[3] recomputed relative residual: {float(result.residual_rel_l2):.3e} in fp32, {rel64:.3e} in fp64 "
+          f"from the same fp32 solution (the recurrence: {result.cg.relative_residual:.3e})")
     print(f"[3] peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     require(result.cg.converged and result.cg.relative_residual <= 1e-5, "did not converge to 1e-5")
     require(tuple(result.pressure.shape) == (n, n, n), "pressure shape")
@@ -752,15 +803,34 @@ def main(argv=None) -> int:
             require(rel <= 1e-12, f"fp64 CG step / residual L{lv} [{i}]: relative error {rel:.3e} > 1e-12")
     print(f"[6] fp64 chunk kernel, CG step and residual vs plain on the {m}^3 hierarchy's smoothed levels: "
           f"max relative error {fp64_err:.3e} (limit 1e-12)")
+    # The same projection with the Chebyshev smoother: every level's block
+    # in plain PyTorch (no chunk-kernel launch), the CG step on the card.
+    cfg_cheb = dataclasses.replace(cfg64, interior_smoother="chebyshev", chebyshev_degree=3)
+    reset_counts()
+    res_c = free_surface.project(setup_s, vel_s, config=cfg_cheb)
+    torch.cuda.synchronize()
+    launches_c = read_counts()
+    x_cheb = res_c.cg.x.cpu().numpy().ravel()[solv]
+    oracle_c = float(np.abs(x_cheb - x_direct).max() / np.abs(x_direct).max())
+    print(f"[6] Chebyshev (degree 3) {m}^3 fp64: {res_c.cg.iterations} iters (GS: {res_s.cg.iterations}), vs direct "
+          f"sparse solve max relative difference {oracle_c:.3e}; kernel launches {launches_c}")
+    require(res_c.cg.converged and oracle_c <= 1e-9, "Chebyshev projection disagrees with the direct solve")
+    require(launches_c["smoother"] == launches_c["smoother_bf16"] == 0, "the Chebyshev path launched the chunk kernel")
+    require(launches_c["cg_step"] == res_c.cg.iterations > 0, "Chebyshev CG-step launches differ from the iterations")
 
     # ---- 7. the frame loop --------------------------------------------------------------
     frames_n = 4
     sim_cfg = config  # the CLI's --fp32 configuration (gmg-torch-simulate --fp32)
     phi0, vel0 = sdf.splash_scene((n, n, n), device=dev, dtype=torch.float32)
-    per_frame = []
+    per_frame, windows = [], []
+    scratch = tempfile.mkdtemp(prefix="chip_smoke_")
+    ckpt, ckpt2 = f"{scratch}/ckpt", f"{scratch}/ckpt_frame2"
 
     def on_frame(k, fr):
         per_frame.append(expected_launches(fr.setup.problem.hier, sim_cfg, fr.iterations, warm=k > 0))
+        windows.append(fr.setup.expanded_shape)
+        if k == 1:  # keep the frame-2 checkpoint (the frame-4 one replaces it)
+            shutil.copytree(ckpt, ckpt2)
         print(f"[7] frame {k + 1}: {fr.iterations} iters, rel. residual {fr.relative_residual:.3e}, "
               f"max divergence {fr.max_divergence:.3e}, advect {fr.seconds['advect']:.3f} s, "
               f"setup {fr.seconds['setup']:.3f} s, project {fr.seconds['project']:.3f} s, "
@@ -768,7 +838,8 @@ def main(argv=None) -> int:
 
     reset_counts()
     t0 = time.perf_counter()
-    frames = simulate.run(phi0, vel0, weights, num_frames=frames_n, config=sim_cfg, on_frame=on_frame)
+    frames = simulate.run(phi0, vel0, weights, num_frames=frames_n, config=sim_cfg, on_frame=on_frame,
+                          checkpoint_dir=ckpt, checkpoint_every=2)
     torch.cuda.synchronize()
     t_loop = time.perf_counter() - t0
     launches_loop = read_counts()
@@ -794,6 +865,43 @@ def main(argv=None) -> int:
               f"vs {pf.iterations}, pressure max relative difference {rel:.3e}")
         require(rel <= 1e-3, f"frame {k + 1}: kernel and plain pressures differ by more than 1e-3")
     print(f"[7] plain frames 1-2 in {t_plain:.3f} s [{card}]")
+    # Checkpoint and resume: the frame-4 checkpoint reads back bit-equal; the
+    # frame-2 one resumes frames 3-4.  Write and read timed apart on frame
+    # 2's state (the same bytes as the loop's own checkpoint).
+    f2 = frames[1]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    simulate.save_state(f"{scratch}/timed", 2, f2.liquid_phi, f2.velocity, f2.pressure)
+    t_write = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    frame_at, phi2, vel2, p2 = simulate.load_state(ckpt2)
+    t_read = time.perf_counter() - t0
+    names_on_disk = sorted(p.name for p in Path(ckpt2).glob("*.gmgf"))
+    require(all(Path(f"{scratch}/timed/{f}").read_bytes() == Path(f"{ckpt2}/{f}").read_bytes()
+                for f in names_on_disk), "a checkpoint of the same state differs byte for byte")
+    disk = sum(Path(f"{ckpt2}/{f}").stat().st_size for f in names_on_disk)
+    raw = nbytes(f2.liquid_phi, *f2.velocity, f2.pressure)
+    last = simulate.load_state(ckpt)
+    require(last[0] == frames_n and np.array_equal(last[1], frames[-1].liquid_phi.cpu().numpy())
+            and np.array_equal(last[3], frames[-1].pressure.cpu().numpy()), "the frame-4 checkpoint differs")
+    resumed_windows = []
+    resumed = simulate.run(
+        torch.as_tensor(phi2, device=dev), tuple(torch.as_tensor(v, device=dev) for v in vel2), weights,
+        num_frames=2, config=sim_cfg, start_frame=frame_at, old_pressure=torch.as_tensor(p2, device=dev),
+        on_frame=lambda k, fr: resumed_windows.append(fr.setup.expanded_shape),
+    )
+    torch.cuda.synchronize()
+    print(f"[7] checkpoint of frame {frame_at}: {len(names_on_disk)} fields, {disk:,} bytes on disk against "
+          f"{raw:,} raw ({disk / raw:.3f}); write {t_write:.3f} s, read {t_read:.3f} s [{card}]")
+    require(frame_at == 2 and torch.equal(resumed[0].liquid_phi, frames[2].liquid_phi),
+            "the resumed frame 3's phi is not bit-equal to the straight run's")
+    for k, (rf, sf) in enumerate(zip(resumed, frames[2:]), start=3):
+        _, rel = rel_err(rf.pressure, sf.pressure)
+        print(f"[7] resumed frame {k}: {rf.iterations} iters (straight {sf.iterations}), pressure max relative "
+              f"difference {rel:.3e}, window {resumed_windows[k - 3]} (straight {windows[k - 1]})")
+        require(abs(rf.iterations - sf.iterations) <= 1, f"resumed frame {k}: iterations differ by more than 1")
+        require(rel <= 1e-3, f"resumed frame {k}: pressure differs by more than 1e-3")
+    shutil.rmtree(scratch)
 
     # ---- 8. the block-sharded path on a one-card block mesh ---------------------------
     mesh = parallel.make_mesh(4, device=dev)
@@ -980,6 +1088,114 @@ def main(argv=None) -> int:
     print(f"[8] solve best of 3: single device {best_m[None]:.4f} s, block mesh {mesh.shape} "
           f"{best_m[mesh]:.4f} s ({best_m[mesh] / best_m[None]:.2f}x) [{card}]")
 
+    # ---- 9. the fused frame loop ---------------------------------------------------------
+    # run_fused: one chunk of 4 frames on the geometry frozen from the input
+    # state; every frame rebuilds its hierarchy and coarse inverse on the
+    # card.  Frame 1 warm-starts from a zero pressure, so it launches the
+    # residual kernel where run()'s cold start does not.
+    geom_hier = free_surface.build_setup(phi0, weights, config=sim_cfg).problem.hier
+    chunks = []
+    reset_counts()
+    t0 = time.perf_counter()
+    phi_f, vel_f, p_f, stats_f = simulate.run_fused(
+        phi0, vel0, weights, num_frames=frames_n, config=sim_cfg, chunk=frames_n,
+        on_chunk=lambda done, st: chunks.append(done),
+    )
+    torch.cuda.synchronize()
+    t_fused_first = time.perf_counter() - t0
+    launches_fused = read_counts()
+    iters_f = [int(i) for i in stats_f["iterations"]]
+    plan = [expected_launches(geom_hier, sim_cfg, it, warm=True) for it in iters_f]
+    expected_fused = {k: sum(e[k] for e in plan) for k in plan[0]}
+    print(f"[9] run_fused, {frames_n} frames in chunks of {frames_n}: {t_fused_first:.3f} s (first call); chunks "
+          f"run fused {chunks}; iterations {iters_f} (run(): {[fr.iterations for fr in frames]}); kernel "
+          f"launches {launches_fused}, expected {expected_fused}")
+    require(chunks == [frames_n], "the chunk did not run fused (re-run through run())")
+    require(launches_fused == expected_fused, "fused-frame launch counts differ from the plan")
+    for key in ("smoother", "cg_step", "residual"):
+        require(launches_fused[key] > 0, f"the fused frames never launched {key}")
+    require(all(abs(a - fr.iterations) <= 1 for a, fr in zip(iters_f, frames)),
+            "fused-frame iterations differ from run()'s by more than 1")
+    require(all(r <= sim_cfg.tolerance for r in stats_f["relative_residual"]), "a fused frame did not converge")
+    for what_, got, want in (("pressure", p_f, frames[-1].pressure), ("phi", phi_f, frames[-1].liquid_phi),
+                             *((f"velocity {a}", vel_f[a], frames[-1].velocity[a]) for a in range(3))):
+        _, rel = rel_err(got, want)
+        print(f"[9] frame {frames_n} {what_}: run_fused vs run() max relative difference {rel:.3e}")
+        require(bool(torch.isfinite(got).all()) and rel <= 1e-3, f"fused frame {frames_n}: {what_} differs")
+
+    # Seconds per frame, the two paths in turns, twice; each call ends on a
+    # device sync.
+    per_path = {"run()": [], "run_fused": []}
+    for _ in range(2):
+        for tag in per_path:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if tag == "run()":
+                simulate.run(phi0, vel0, weights, num_frames=frames_n, config=sim_cfg)
+            else:
+                simulate.run_fused(phi0, vel0, weights, num_frames=frames_n, config=sim_cfg, chunk=frames_n)
+            torch.cuda.synchronize()
+            per_path[tag].append((time.perf_counter() - t0) / frames_n)
+    for tag, ts in per_path.items():
+        print(f"[9] {tag}: {min(ts):.4f} s per frame at {n}^3, best of 2 in turns "
+              f"(each: {', '.join(f'{t:.4f}' for t in ts)}) [{card}]")
+    # Host syncs per frame of each path.
+    for tag, fn in (("run()", lambda: simulate.run(phi0, vel0, weights, num_frames=frames_n, config=sim_cfg)),
+                    ("run_fused", lambda: simulate.run_fused(phi0, vel0, weights, num_frames=frames_n,
+                                                             config=sim_cfg, chunk=frames_n))):
+        _, sites = count_syncs(fn)
+        total = sum(sites.values())
+        print(f"[9] {tag}: {total / frames_n:.1f} host syncs per frame ({total} in {frames_n} frames), by source "
+              f"line: {dict(sites.most_common(12))}")
+
+    # At frame 1's geometry: the coarse system on the card against the host's
+    # (_finish_hierarchy: a sync per level, scipy assembly, fp64 inverse on
+    # the host), and the two timed with their syncs.
+    s1 = free_surface.build_setup(frames[0].liquid_phi, weights, config=sim_cfg)
+    _, _, trimmed1, mg_w1, _, _ = free_surface._setup_base_fields(
+        frames[0].liquid_phi, s1.weights, None, sim_cfg.theta_clamp, torch.float32, sim_cfg.dirichlet_band)
+    labels1, exp_w1 = free_surface._expand_window_fields(trimmed1, mg_w1, s1.window_start, s1.base_pads,
+                                                         s1.expanded_shape)
+    mg_dtype, fine_dtype, fine_full = mgpcg.fine_plan(sim_cfg)
+    levels1, flags1, label_levels1, _ = mg._build_levels(
+        labels1, tuple(exp_w1), s1.problem.hier.num_levels, sim_cfg.boundary_width, mg_dtype,
+        sim_cfg.mg_ew_dtype, fine_dtype, fine_full)
+    host_hier = s1.problem.hier
+    nd_pad1 = host_hier.coarse_minv.shape[0]
+    require(nd_pad1 > 0, "the host coarse system is not a dense inverse")
+    coarse_ms = {"host": [], "card": []}
+    for _ in range(3):
+        for tag in coarse_ms:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if tag == "host":
+                mg._finish_hierarchy(levels1, flags1, label_levels1, sim_cfg)
+            else:
+                mg.coarse_system_device(levels1[-1], nd_pad1)
+            torch.cuda.synchronize()
+            coarse_ms[tag].append((time.perf_counter() - t0) * 1e3)
+    _, host_syncs = count_syncs(lambda: mg._finish_hierarchy(levels1, flags1, label_levels1, sim_cfg))
+    (dofs1, minv1, ndof1), card_syncs = count_syncs(lambda: mg.coarse_system_device(levels1[-1], nd_pad1))
+    again1 = mg.coarse_system_device(levels1[-1], nd_pad1)
+    torch.cuda.synchronize()
+    bit_equal = all(torch.equal(a, b) for a, b in zip((dofs1, minv1, ndof1), again1))
+    _, minv_rel = rel_err(minv1, host_hier.coarse_minv)
+    c_last = host_hier.levels[-1]
+    r1 = torch.where(c_last.solvable, torch.randn(c_last.shape, generator=gen, device=dev), 0.0)
+    _, solve_rel = rel_err(mg.coarse_solve(host_hier._replace(coarse_dofs=dofs1, coarse_minv=minv1), r1),
+                           mg.coarse_solve(host_hier, r1))
+    print(f"[9] frame 1's coarse system ({int(ndof1)} DOFs, bucket {nd_pad1}): on the card vs the host's "
+          f"max relative |dminv| {minv_rel:.3e}, coarse_solve of a random vector {solve_rel:.3e}; slot maps "
+          f"equal {torch.equal(dofs1, host_hier.coarse_dofs)}; two card builds bit-equal {bit_equal}")
+    print(f"[9] coarse factorization, best of 3: host (_finish_hierarchy) {min(coarse_ms['host']):.2f} ms with "
+          f"{sum(host_syncs.values())} host syncs, card (coarse_system_device) {min(coarse_ms['card']):.2f} ms "
+          f"with {sum(card_syncs.values())}; each: host {[round(t, 2) for t in coarse_ms['host']]}, card "
+          f"{[round(t, 2) for t in coarse_ms['card']]} [{card}]")
+    require(bit_equal and torch.equal(dofs1, host_hier.coarse_dofs), "coarse system on the card: not reproducible")
+    # An fp32 LU inverse against an fp64 one rounded to fp32: the gap grows
+    # with the coarse system's condition number.
+    require(minv_rel <= 1e-2 and solve_rel <= 1e-2, "the card's coarse inverse differs from the host's")
+
     src = "geometricmultigridpressuresolver_tpu_torch/csrc/"
     jax_src = "geometricmultigridpressuresolver_tpu/"
     # The band-strip and bf16-field rows are launches of the chunk kernel
@@ -1008,7 +1224,8 @@ def main(argv=None) -> int:
         # The bf16-field smoother runs on the bf16-field projection's path,
         # the block-mesh kernels on the block-mesh projection's.
         path = launches_h if name == "smoother_bf16" else launches_m if name in names[5:] else launches
-        k.update(launches=path[counter], launches_frame_loop=launches_loop[counter], max_abs_err=errs[name],
+        k.update(launches=path[counter], launches_frame_loop=launches_loop[counter],
+                 launches_fused_frames=launches_fused[counter], max_abs_err=errs[name],
                  ms=times[name][0], plain_ms=times[name][1], bound_ms=bounds[name][0],
                  bound_by=bounds[name][1], bound_active_ms=bounds[name][0],
                  bound_window_ms=bounds_window[name][0], bound_window_by=bounds_window[name][1],

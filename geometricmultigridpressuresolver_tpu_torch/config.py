@@ -4,8 +4,7 @@ The knobs of ``geometricmultigridpressuresolver_tpu.config.SolverConfig``
 that mean something on the port's path, with the same names and defaults,
 plus `kernel_mode`.  Knobs that exist only for the TPU (Pallas interpret
 mode and tiling, padded kernel views, MXU transfers, setup program
-granularity, the Chebyshev smoother) are absent on purpose: passing one
-raises ``TypeError``.
+granularity) are absent on purpose: passing one raises ``TypeError``.
 
 One default differs: `solve_dtype` is float64, the reference's all-double
 solve.  The JAX package resolves its default from ``jax_enable_x64``; torch
@@ -23,6 +22,7 @@ _EW_DTYPES = (None, torch.bfloat16, torch.float32, torch.float64)
 _FIELD_DTYPES = (None, torch.bfloat16)
 KERNEL_MODES = ("auto", "torch", "cuda")
 ADVECTION_SCHEMES = ("semi_lagrangian", "upwind")
+INTERIOR_SMOOTHERS = (None, "chebyshev")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -38,6 +38,12 @@ class SolverConfig:
         outer CG operator always stays in solve_dtype.
       use_gauss_seidel: red/black Gauss-Seidel interior smoother when True,
         damped Jacobi otherwise.
+      interior_smoother: None derives the interior smoother from
+        use_gauss_seidel; "chebyshev" runs the polynomial smoother
+        (`ops.stencil.chebyshev_smooth`) of `chebyshev_degree` on every
+        level, in plain PyTorch as the JAX package runs it on its jnp path
+        (`solver/mg.py`: no level goes to the chunk kernel).
+      chebyshev_degree: degree of the Chebyshev polynomial.
       jacobi_damping: damped-Jacobi weight (reference 2/3).
       boundary_width: BFS band width for extra boundary smoothing.
       boundary_iterations: damped-Jacobi passes over the band before and
@@ -89,6 +95,8 @@ class SolverConfig:
     mg_dtype: torch.dtype | None = None
     mg_ew_dtype: torch.dtype | None = None
     use_gauss_seidel: bool = True
+    interior_smoother: str | None = None
+    chebyshev_degree: int = 2
     jacobi_damping: float = 2.0 / 3.0
     boundary_width: int = 3
     boundary_iterations: int = 3
@@ -128,6 +136,11 @@ class SolverConfig:
         strip = self.pallas_band_strip
         if isinstance(strip, bool) or not isinstance(strip, int) or strip < 0:
             raise ValueError(f"config.pallas_band_strip={strip!r}; expected an int >= 0")
+        if self.interior_smoother not in INTERIOR_SMOOTHERS:
+            raise ValueError(
+                f"config.interior_smoother={self.interior_smoother!r}; expected one of "
+                f"{INTERIOR_SMOOTHERS}"
+            )
         if self.advection not in ADVECTION_SCHEMES:
             raise ValueError(
                 f"config.advection={self.advection!r}; expected one of {ADVECTION_SCHEMES}"

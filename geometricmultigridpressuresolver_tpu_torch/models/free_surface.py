@@ -146,9 +146,13 @@ def face_projection_fields(material, liquid_phi, cut_cell_weights, theta_clamp: 
 
 
 def _setup_base_fields(liquid_phi, cut_cell_weights, solid_phi, theta_clamp: float, dtype,
-                       dirichlet_band: int):
+                       dirichlet_band: int, host: bool = True):
     """Steps 1-3 on the base grid.  Returns (material, mg_labels, trimmed,
-    mg_weights, (proj_x, proj_y, proj_z) numpy, non-EXTERIOR count)."""
+    mg_weights, (proj_x, proj_y, proj_z), non-EXTERIOR count): the
+    occupancy projections and the count on the host (numpy, int) for
+    `build_setup`'s window decisions, or with `host=False` as device
+    tensors, read by nothing on the host (the frozen frame of
+    `models.simulate.run_fused`, as the JAX package keeps them)."""
     material = build_material_labels(liquid_phi, cut_cell_weights, solid_phi)
     valid = classify_valid_faces(material, cut_cell_weights)
     mg_labels = torch.where(
@@ -163,10 +167,11 @@ def _setup_base_fields(liquid_phi, cut_cell_weights, solid_phi, theta_clamp: flo
         mg_weights.append(torch.where(valid[axis], w * inv_theta, torch.zeros_like(w)))
     trimmed = domain_ops.trim_far_dirichlet(mg_labels, dirichlet_band)
     non_ext = trimmed != int(CellLabel.EXTERIOR)
-    projections = tuple(
-        non_ext.any(dim=dims).cpu().numpy() for dims in ((1, 2), (0, 2), (0, 1))
-    )
-    return material, mg_labels, trimmed, mg_weights, projections, int(non_ext.sum())
+    projections = tuple(non_ext.any(dim=dims) for dims in ((1, 2), (0, 2), (0, 1)))
+    count = non_ext.sum()
+    if host:
+        projections, count = tuple(p.cpu().numpy() for p in projections), int(count)
+    return material, mg_labels, trimmed, mg_weights, projections, count
 
 
 def _window(arr, start, base_pads, out_shape, fill):

@@ -9,21 +9,34 @@ frame's window shape while the liquid fits it (`build_setup(reuse_from=
 solve runs the port's kernels; the advection is plain PyTorch, as the JAX
 package computes it outside Pallas.
 
-Not yet ported: checkpointing (`save_state` / `load_state`) and `run_fused`.
+  * run / step: the per-frame loop, with checkpoints every N frames
+    (`save_state` / `load_state`, the native tiled format of `io`) and
+    resume (`start_frame`, `old_pressure`);
+  * run_fused: chunks of frames on frozen geometry (window, level count,
+    coarse bucket), the hierarchy and the coarse direct solve rebuilt on
+    the device each frame with no host decision, the geometry checked once
+    per chunk and a failing chunk re-run through `run`.
 
-    gmg-torch-simulate --n 128 --frames 24 --fp32
+    gmg-torch-simulate --n 128 --frames 24 --fp32 \\
+        --checkpoint-dir out/ckpt --checkpoint-every 8 [--resume out/ckpt]
 """
 
 from __future__ import annotations
 
+import json
 import time
+from pathlib import Path
 from typing import NamedTuple, Sequence
 
+import numpy as np
 import torch
 
 from geometricmultigridpressuresolver_tpu_torch import device as device_mod
+from geometricmultigridpressuresolver_tpu_torch import io as gmg_io
 from geometricmultigridpressuresolver_tpu_torch.config import SolverConfig
 from geometricmultigridpressuresolver_tpu_torch.models import free_surface
+from geometricmultigridpressuresolver_tpu_torch.solver import mg as mg_mod
+from geometricmultigridpressuresolver_tpu_torch.solver import mgpcg
 
 
 def _sl(axis: int, sl: slice) -> tuple:
@@ -252,6 +265,32 @@ def step(
     )
 
 
+def save_state(directory, frame: int, liquid_phi, velocity, pressure=None) -> None:
+    """Checkpoint the simulation state in the native tiled format (`io`),
+    the JAX package's `save_state` file for file: device tensors are copied
+    to the host and written as they are (float32 or float64).  Resume with
+    `load_state` + `run(start_frame=..., old_pressure=...)`."""
+    fields = {
+        "liquid_phi": liquid_phi,
+        "velocity_u": velocity[0],
+        "velocity_v": velocity[1],
+        "velocity_w": velocity[2],
+    }
+    if pressure is not None:
+        fields["pressure"] = pressure
+    gmg_io.save_scene(directory, **fields)
+    (Path(directory) / "state.json").write_text(json.dumps({"frame": int(frame), "format": 1}))
+
+
+def load_state(directory):
+    """Load a `save_state` checkpoint -> (frame, liquid_phi, velocity,
+    pressure-or-None), as numpy arrays."""
+    meta = json.loads((Path(directory) / "state.json").read_text())
+    fields = gmg_io.load_scene(directory)
+    velocity = (fields["velocity_u"], fields["velocity_v"], fields["velocity_w"])
+    return int(meta["frame"]), fields["liquid_phi"], velocity, fields.get("pressure")
+
+
 def run(
     liquid_phi,
     velocity,
@@ -265,11 +304,17 @@ def run(
     start_frame: int = 0,
     old_pressure=None,
     device=None,
+    checkpoint_dir=None,
+    checkpoint_every: int = 0,
 ) -> list[FrameResult]:
     """Run `num_frames` steps, warm-starting each solve from the last
     pressure and keeping each frame's window shape for the next; returns
     the per-frame results (the flipSplash loop), on `device` as `step`
-    places it.  `on_frame(k, result)` is called after frame k."""
+    places it.  `on_frame(k, result)` is called after frame k.
+
+    Resume: `start_frame` / `old_pressure` continue from a `load_state`
+    checkpoint; `checkpoint_dir` + `checkpoint_every` write one every N
+    frames (`save_state`)."""
     if config is None:
         config = SolverConfig()
     frames = []
@@ -286,15 +331,204 @@ def run(
         # every frame's multigrid hierarchy on the device.
         frames.append(fr._replace(setup=None))
         liquid_phi, velocity, pressure = fr.liquid_phi, fr.velocity, fr.pressure
+        if checkpoint_dir is not None and checkpoint_every and (k + 1 - start_frame) % checkpoint_every == 0:
+            save_state(checkpoint_dir, k + 1, liquid_phi, velocity, pressure)
         if on_frame is not None:
             on_frame(k, fr)
     return frames
 
 
+class FrozenGeometry(NamedTuple):
+    """The host decisions of `build_setup` frozen for a chunk of frames."""
+
+    base_pads: tuple[tuple[int, int], ...]
+    expanded_shape: tuple[int, int, int]
+    start: tuple[int, int, int]   # window origin, padded-base coords
+    target_levels: int            # hierarchy depth after capping
+    nd_pad: int                   # coarse DOF bucket
+    padding: int
+
+
+def _frame_frozen(phi, velocity, pressure, cut_cell_weights, solid_phi, config: SolverConfig,
+                  geom: FrozenGeometry, dt: float, gravity: float):
+    """One whole frame with the geometry frozen, the counterpart of the JAX
+    package's `_frame_traced`: advect, gravity, labels and weights, the
+    frozen window, `mg._build_levels`, `mg.coarse_system_device`,
+    `mgpcg._finish_problem`, the warm-started projection.
+
+    No host decision: the window, the depth and the coarse bucket come from
+    `geom`.  Returns (new_phi, new_velocity, new_pressure, result, safety)
+    with `safety` = (fits, caps_ok, ndof_c) as device tensors, which
+    `run_fused` reads once per chunk: the active region still inside the
+    window, no level lost all its DOFs (where `build_setup` would cap the
+    hierarchy), and the coarse DOF count (against the bucket).
+    """
+    sd = config.solve_dtype
+    dx = 1.0 / max(phi.shape)
+    new_phi, new_vel = _advect(phi, velocity, dt, dx, config)
+    new_vel = list(new_vel)
+    new_vel[1] = new_vel[1] + gravity * dt
+
+    material, mg_labels, trimmed, mg_weights, projections, _ = free_surface._setup_base_fields(
+        new_phi, cut_cell_weights, solid_phi, config.theta_clamp, sd, config.dirichlet_band,
+        host=False,
+    )
+    window_labels = trimmed if config.compact_domain else mg_labels
+    labels, exp_weights = free_surface._expand_window_fields(
+        window_labels, mg_weights, geom.start, geom.base_pads, geom.expanded_shape
+    )
+    mg_dtype, fine_dtype, fine_full = mgpcg.fine_plan(config)
+    levels, flags, _, fine = mg_mod._build_levels(
+        labels, tuple(exp_weights), geom.target_levels, config.boundary_width, mg_dtype,
+        config.mg_ew_dtype, fine_dtype, fine_full,
+    )
+    dofs, minv, ndof_c = mg_mod.coarse_system_device(levels[-1], geom.nd_pad)
+    hier = mg_mod.MGHierarchy(
+        levels=levels, coarse_dofs=dofs, coarse_minv=minv, coarse_chol=minv.new_zeros((0, 0))
+    )
+    setup = free_surface.ProjectionSetup(
+        problem=mgpcg._finish_problem(hier, fine, fine_full),
+        material=material,
+        weights=tuple(cut_cell_weights),
+        liquid_phi=new_phi,
+        window_start=geom.start,
+        expanded_shape=geom.expanded_shape,
+        base_pads=geom.base_pads,
+        padding=geom.padding,
+        mg_levels=geom.target_levels,
+    )
+    result = free_surface.project(setup, tuple(new_vel), old_pressure=pressure, config=config)
+
+    true = torch.ones((), dtype=torch.bool, device=phi.device)
+    fits = true
+    if config.compact_domain:
+        for a in range(3):
+            off = geom.start[a] - geom.base_pads[a][0]
+            proj = projections[a]
+            if off > 0:
+                fits = fits & ~proj[:off].any()
+            hi0 = min(off + geom.expanded_shape[a], proj.shape[0])
+            fits = fits & ~proj[max(hi0, 0):].any()
+    caps_ok = torch.stack(flags).all() if flags else true
+    return new_phi, result.velocity, result.pressure, result, (fits, caps_ok, ndof_c)
+
+
+def run_fused(
+    liquid_phi,
+    velocity,
+    cut_cell_weights,
+    num_frames: int,
+    dt: float = 1.0 / 120.0,
+    gravity: float = -9.8,
+    solid_phi=None,
+    config: SolverConfig | None = None,
+    chunk: int = 8,
+    old_pressure=None,
+    on_chunk=None,
+    device=None,
+):
+    """The flipSplash loop in chunks of `chunk` frames on frozen geometry
+    (the JAX package's `run_fused`), on `device` as `step` places it.
+
+    Frame 0's geometry (window, level count, coarse bucket with one extra
+    bucket of headroom) comes from `build_setup` on the input state and is
+    frozen for a chunk; every frame of the chunk (`_frame_frozen`) rebuilds
+    its labels, hierarchy and coarse inverse on the device.  After a chunk
+    the host reads its safety stats once.  A chunk that broke the frozen
+    geometry (the liquid left the window, a level lost its DOFs, or the
+    coarse system outgrew the bucket) is discarded and re-run through
+    `run()`, and the geometry is frozen again from the new state: that is
+    the JAX package's own rule, so the answer never rests on the frozen
+    guess.  A tail shorter than `chunk` goes through `run()`.
+    `on_chunk(done, stats)` is called after each chunk that ran fused.
+
+    With `old_pressure=None` the carried pressure starts as zeros (a warm
+    start from zero, as in the JAX package).  Returns (phi, velocity,
+    pressure, stats): the final state and a dict of numpy arrays per frame
+    (iterations, relative_residual, max_divergence).
+    """
+    if config is None:
+        config = SolverConfig()
+    sd = config.solve_dtype
+    dev = device_mod.of(liquid_phi, device)
+    phi = torch.as_tensor(liquid_phi, dtype=sd, device=dev)
+    vel = tuple(torch.as_tensor(v, dtype=sd, device=dev) for v in velocity)
+    weights = tuple(torch.as_tensor(w, dtype=sd, device=dev) for w in cut_cell_weights)
+    if solid_phi is not None:
+        solid_phi = torch.as_tensor(solid_phi, dtype=sd, device=dev)
+    pressure = (
+        torch.zeros(phi.shape, dtype=sd, device=dev)
+        if old_pressure is None
+        else torch.as_tensor(old_pressure, dtype=sd, device=dev)
+    )
+    stats_frames: list[tuple] = []
+
+    def geometry(cur_phi) -> FrozenGeometry:
+        setup = free_surface.build_setup(cur_phi, weights, solid_phi=solid_phi, config=config)
+        hier = setup.problem.hier
+        nd_pad = max(hier.coarse_minv.shape[0], hier.coarse_chol.shape[0])
+        # One extra bucket of headroom for the liquid's motion over the
+        # chunk (an overflow is detected whatever the headroom).
+        return FrozenGeometry(
+            setup.base_pads, setup.expanded_shape, setup.window_start, hier.num_levels,
+            max(256, nd_pad + 256), setup.padding,
+        )
+
+    def per_frame(k: int):
+        frames = run(
+            phi, vel, weights, num_frames=k, dt=dt, gravity=gravity, solid_phi=solid_phi,
+            config=config, old_pressure=pressure, device=dev,
+        )
+        stats_frames.extend((fr.iterations, fr.relative_residual, fr.max_divergence) for fr in frames)
+        return frames[-1].liquid_phi, frames[-1].velocity, frames[-1].pressure
+
+    geom = geometry(phi)
+    done = 0
+    while done < num_frames:
+        k = min(chunk, num_frames - done)
+        if k < chunk:
+            phi, vel, pressure = per_frame(k)
+            done += k
+            continue
+        # Per frame: the CG's host numbers, and the divergence and safety
+        # stats on the device (no field of a past frame is kept).
+        state, cg_stats, device_stats = (phi, vel, pressure), [], []
+        for _ in range(k):
+            *state, result, safe = _frame_frozen(
+                *state, weights, solid_phi, config, geom, dt, gravity
+            )
+            cg_stats.append((int(result.cg.iterations), float(result.cg.relative_residual)))
+            device_stats.append(torch.stack(
+                [result.max_divergence.double(), *(s.double() for s in safe)]
+            ))
+        max_div, fits, caps_ok, ndof_c = torch.stack(device_stats).cpu().numpy().T
+        if not (fits.all() and caps_ok.all() and ndof_c.max() <= geom.nd_pad):
+            # The liquid broke the frozen geometry: discard the chunk (the
+            # state before it is untouched), re-run it frame by frame, and
+            # freeze the geometry again from the new state.
+            phi, vel, pressure = per_frame(k)
+            geom = geometry(phi)
+            done += k
+            continue
+        phi, vel, pressure = state
+        stats_frames.extend((it, rel, float(m)) for (it, rel), m in zip(cg_stats, max_div))
+        done += k
+        if on_chunk is not None:
+            on_chunk(done, stats_frames[-k:])
+
+    stats = {
+        "iterations": np.asarray([s[0] for s in stats_frames]),
+        "relative_residual": np.asarray([s[1] for s in stats_frames]),
+        "max_divergence": np.asarray([s[2] for s in stats_frames]),
+    }
+    return phi, vel, pressure, stats
+
+
 def main(argv=None):
     """The flipSplash loop as a command:
 
-        gmg-torch-simulate --n 128 --frames 24 [--fp32] [--device cpu]
+        gmg-torch-simulate --n 128 --frames 24 [--fp32] [--device cpu] \\
+            [--checkpoint-dir out/ckpt --checkpoint-every 8] [--resume out/ckpt]
     """
     import argparse
 
@@ -310,6 +544,10 @@ def main(argv=None):
                    help="solve in float32 (bfloat16 MG edge weights)")
     p.add_argument("--device", default="cuda",
                    help="cuda (the default; needs a card) or cpu")
+    p.add_argument("--checkpoint-dir", default=None)
+    p.add_argument("--checkpoint-every", type=int, default=0)
+    p.add_argument("--resume", default=None,
+                   help="checkpoint directory to resume from")
     args = p.parse_args(argv)
     if torch.device(args.device).type == "cuda" and not torch.cuda.is_available():
         p.error("no CUDA device is available; pass --device cpu to run on the CPU")
@@ -323,7 +561,16 @@ def main(argv=None):
     shape = (args.n,) * 3
     dtype = config.solve_dtype
     weights = sdf.open_box_weights(shape, device=dev, dtype=dtype)
-    phi, velocity = sdf.splash_scene(shape, device=dev, dtype=dtype)
+    start_frame, old_pressure = 0, None
+    if args.resume:
+        start_frame, phi, velocity, old_pressure = load_state(args.resume)
+        phi = torch.as_tensor(phi, dtype=dtype, device=dev)
+        velocity = tuple(torch.as_tensor(v, dtype=dtype, device=dev) for v in velocity)
+        if old_pressure is not None:
+            old_pressure = torch.as_tensor(old_pressure, dtype=dtype, device=dev)
+        print(f"resumed frame {start_frame} from {args.resume}", flush=True)
+    else:
+        phi, velocity = sdf.splash_scene(shape, device=dev, dtype=dtype)
 
     def on_frame(k, fr):
         print(
@@ -338,6 +585,8 @@ def main(argv=None):
     frames = run(
         phi, velocity, weights, num_frames=args.frames, dt=args.dt,
         gravity=args.gravity, config=config, on_frame=on_frame,
+        start_frame=start_frame, old_pressure=old_pressure,
+        checkpoint_dir=args.checkpoint_dir, checkpoint_every=args.checkpoint_every,
     )
     name = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
     print(f"{len(frames)} frames in {time.time() - t0:.1f}s on {name}", flush=True)

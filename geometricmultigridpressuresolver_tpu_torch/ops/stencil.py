@@ -10,6 +10,8 @@ Label-masked 7-point operators with per-level precomputed coefficients
   * boundary_jacobi-- the same, restricted to the boundary band
   * rb_gauss_seidel-- red/black half-sweeps, red->black on the downstroke
                       and black->red on the upstroke (adjoint ordering)
+  * chebyshev_smooth-- the optional polynomial interior smoother
+                      (`config.interior_smoother="chebyshev"`)
 
 These are the textbook forms the symmetry suite runs.  The V-cycle's
 smoothing block goes through `ops.fused_smoother`, whose kernel and plain
@@ -122,4 +124,39 @@ def rb_gauss_seidel(x, b, c: LevelCoeffs, forward: bool) -> torch.Tensor:
     """Full red/black sweep: red then black forward, black then red backward."""
     for color in ((0, 1) if forward else (1, 0)):
         x = rb_gauss_seidel_color(x, b, c, color)
+    return x
+
+
+def chebyshev_smooth(
+    x, b, c: LevelCoeffs, degree: int = 2, lambda_max=None, smoothing_ratio: float = 4.0
+) -> torch.Tensor:
+    """Chebyshev polynomial smoother of the given degree: x' = x + p(A) r,
+    with coefficients targeting [lambda_max / smoothing_ratio, lambda_max].
+
+    `lambda_max=None` takes the Gershgorin bound of the level itself (max
+    over solvable cells of diag + the off-diagonal row sum): ghost-fluid
+    rows carry diagonals up to weight / theta_clamp, which a fixed bound of
+    12 would let the polynomial amplify.  For a fixed level the smoother is
+    a fixed polynomial in A, so the V-cycle stays symmetric without an
+    adjoint sweep order.  The JAX package's `ops/stencil.py::
+    chebyshev_smooth`, step for step.
+    """
+    dtype = x.dtype
+    if lambda_max is None:
+        row = c.diag + neighbor_sum(torch.ones_like(c.diag), c)
+        lambda_max = torch.max(torch.where(c.solvable, row, torch.zeros_like(row)))
+    lambda_max = torch.as_tensor(lambda_max, dtype=dtype, device=x.device)
+    lambda_min = lambda_max / smoothing_ratio
+    theta = 0.5 * (lambda_max + lambda_min)
+    delta = 0.5 * (lambda_max - lambda_min)
+    sigma = theta / delta
+
+    d = (1.0 / theta) * residual(x, b, c)
+    x = x + d
+    rho = 1.0 / sigma
+    for _ in range(1, degree):
+        rho_new = 1.0 / (2.0 * sigma - rho)
+        d = (rho_new * rho) * d + (2.0 * rho_new / delta) * residual(x, b, c)
+        x = x + d
+        rho = rho_new
     return x

@@ -6,7 +6,11 @@ and optional null-space projection.
 
 The loop runs on the host and tests convergence once per iteration with a
 single `.item()` on ||r||^2 -- one device sync per iteration, which keeps
-iteration counts exactly comparable with the reference.  Every other scalar
+iteration counts exactly comparable with the reference.  An optional
+`interrupt_check(iteration) -> bool` (the reference's UT_Interrupt) runs on
+the host right after that sync, so it costs no extra one: True stops the
+solve after that iteration with the current iterate and `converged` False
+(unless that iteration converged).  Every other scalar
 (alpha, beta, rho) stays a 0-d device tensor; the fused CG step reads beta
 by pointer.  Capturing the loop in a CUDA graph would remove the sync and
 the launch gaps; that is later work.
@@ -40,6 +44,7 @@ class _Loop:
         threshold = torch.tensor(tolerance, dtype=dtype, device=device) ** 2 * self.b_norm2
         self.b_norm2_h, self.threshold_h = torch.stack((self.b_norm2, threshold)).tolist()
         self.max_iterations = max_iterations
+        self.interrupted = False
         self.history = None
         if record:
             self.history = torch.full(
@@ -53,6 +58,10 @@ class _Loop:
     def record(self, iteration: int, rr: torch.Tensor) -> None:
         if self.history is not None:
             self.history[iteration] = rr
+
+    def check_interrupt(self, interrupt_check, iteration: int) -> None:
+        if interrupt_check is not None:
+            self.interrupted = bool(interrupt_check(iteration))
 
     def running(self, rr_h: float, iteration: int) -> bool:
         return rr_h > self.threshold_h and iteration < self.max_iterations
@@ -80,6 +89,7 @@ def solve_pcg(
     max_iterations: int = 2500,
     project_null_space: bool = False,
     record_residuals: bool = False,
+    interrupt_check: Callable[[int], bool] | None = None,
 ) -> CGResult:
     """Textbook PCG solve of A x = b over the solvable set."""
 
@@ -98,7 +108,7 @@ def solve_pcg(
     p = z
     loop.record(0, rr)
     it, rr_h = 0, rr.item()
-    while loop.running(rr_h, it):
+    while loop.running(rr_h, it) and not loop.interrupted:
         ap = apply_a(p)
         denom = blas.dot(p, ap, solvable)
         alpha = rho / torch.where(denom == 0, torch.ones_like(denom), denom)
@@ -113,6 +123,7 @@ def solve_pcg(
         it += 1
         loop.record(it, rr)
         rr_h = rr.item()
+        loop.check_interrupt(interrupt_check, it)
     return loop.result(x, rr, rr_h, it)
 
 
@@ -128,6 +139,7 @@ def solve_pcg_fused(
     project_null_space: bool = False,
     preconditioner_dot: Callable[[torch.Tensor], tuple] | None = None,
     record_residuals: bool = False,
+    interrupt_check: Callable[[int], bool] | None = None,
 ) -> CGResult:
     """PCG with a fused search-direction / mat-vec / dot step.
 
@@ -167,7 +179,7 @@ def solve_pcg_fused(
     p, beta = z, torch.zeros_like(rho)
     loop.record(0, rr)
     it, rr_h = 0, rr.item()
-    while loop.running(rr_h, it):
+    while loop.running(rr_h, it) and not loop.interrupted:
         p, ap, pap = step_p(z, p, beta)
         pap = pap.reshape(()).to(dtype)
         alpha = rho / torch.where(pap == 0, torch.ones_like(pap), pap)
@@ -182,6 +194,7 @@ def solve_pcg_fused(
         it += 1
         loop.record(it, rr)
         rr_h = rr.item()
+        loop.check_interrupt(interrupt_check, it)
     return loop.result(x, rr, rr_h, it)
 
 

@@ -15,6 +15,10 @@
     active tiles of its own grid), built once per solve.
   * level_flags: with a block mesh (`parallel.mesh.BlockMesh`), which
     levels run the block-mesh smoother (`parallel.fused_sharded`).
+  * coarse_system_device: the coarsest level's identity-padded dense
+    inverse assembled and inverted on the level's device (JAX
+    `_coarse_system_traced`), for the frozen-geometry frame loop
+    (`models.simulate.run_fused`).
 
 Without a mesh every smoothed level runs the single-device chunk kernel on
 the card: it takes any shape, so there is no eligibility gate -- and
@@ -22,6 +26,13 @@ with `config.mg_field_dtype` every smoothed level stores its fields narrow.
 With a mesh, a level is "sharded" where the mesh splits it and
 `sharded_eligible` holds (JAX mg.py:666-726); sharded levels keep the mg
 dtype, the others narrow as before (JAX mg.py:807-812).
+
+`config.interior_smoother="chebyshev"` flags every level "plain": the
+smoothing block is `chebyshev_block` in plain PyTorch and the downstroke's
+residual `stencil.residual`, with the fields in the mg dtype.  This is the
+JAX package's design (its Pallas flags are all off under this smoother,
+JAX mg.py:685), not a fallback: no level has tiles or band lists, and the
+CG step of `mgpcg.solve` still runs its kernel on the card.
 """
 
 from __future__ import annotations
@@ -35,8 +46,8 @@ from geometricmultigridpressuresolver_tpu_torch import device as device_mod
 from geometricmultigridpressuresolver_tpu_torch.config import SolverConfig
 from geometricmultigridpressuresolver_tpu_torch.grids import is_solvable
 from geometricmultigridpressuresolver_tpu_torch.models import assembled
+from geometricmultigridpressuresolver_tpu_torch.ops import blas, fused_cg, fused_smoother, stencil, transfer
 from geometricmultigridpressuresolver_tpu_torch.ops import domain as domain_ops
-from geometricmultigridpressuresolver_tpu_torch.ops import fused_cg, fused_smoother, stencil, transfer
 from geometricmultigridpressuresolver_tpu_torch.parallel import fused_sharded
 from geometricmultigridpressuresolver_tpu_torch.parallel.mesh import grid_split
 
@@ -204,6 +215,57 @@ def _finish_hierarchy(
     )
 
 
+def coarse_system_device(c: stencil.LevelCoeffs, nd_pad: int):
+    """The coarsest level's direct solve built on the level's device and in
+    its dtype, with no host round trip: (coarse_dofs, coarse_minv, ndof),
+    the counterpart of the JAX package's `_coarse_system_traced`.
+
+    The identity-padded dense system comes straight from the stencil
+    coefficients (A[i,i] = diag, A[i,j] = -ew between solvable neighbours,
+    the operator `stencil.apply_poisson` applies), in flat C cell order as
+    the host assembler numbers the DOFs.  It is (nd_pad + 1)^2 with a dump
+    row and column at nd_pad: non-DOF cells, couplings to Dirichlet or
+    exterior neighbours and slots past the bucket (ndof > nd_pad) all
+    write there, and the dump is cut off.  Every kept entry is written
+    once, with no accumulation, so the matrix is the same bits on every
+    call.  Then `torch.linalg.inv_ex` (the inverse without its error check,
+    which would sync the host; the JAX package's traced path also always
+    inverts), symmetrized.  `coarse_dofs` maps slots to flat cells, pad
+    slots holding the sentinel ncell; `ndof` is a device scalar, and
+    `ndof > nd_pad` means the bucket overflowed (the preconditioner is
+    then weakened but still symmetric; `run_fused` checks it).
+    """
+    dtype, dev = c.diag.dtype, c.diag.device
+    solv = c.solvable.reshape(-1)
+    ncell = solv.numel()
+    rank = torch.cumsum(solv.to(torch.int64), 0) - 1
+    ndof = solv.sum()
+    slot = torch.where(solv & (rank < nd_pad), rank, nd_pad)
+    side = nd_pad + 1
+    a = torch.zeros(side * side, dtype=dtype, device=dev)
+    a[slot * side + slot] = torch.where(solv, c.diag.reshape(-1).to(dtype), 0.0)
+    slot3 = slot.reshape(c.shape)
+    for axis, ew in enumerate((c.ew0, c.ew1, c.ew2)):
+        lo = [slice(None)] * 3
+        hi = [slice(None)] * 3
+        lo[axis], hi[axis] = slice(0, -1), slice(1, None)
+        s_lo = slot3[tuple(lo)].reshape(-1)
+        s_hi = slot3[tuple(hi)].reshape(-1)
+        # ew[i] couples cells i and i+1 along `axis`; 0 - w keeps a zero
+        # weight +0.0, as the JAX package's scatter-add leaves it.
+        w = 0.0 - ew[tuple(lo)].reshape(-1).to(dtype)
+        a[s_lo * side + s_hi] = w
+        a[s_hi * side + s_lo] = w
+    a = a.reshape(side, side)[:nd_pad, :nd_pad]
+    i = torch.arange(nd_pad, device=dev)
+    a[i, i] += (i >= ndof).to(dtype)
+    minv = torch.linalg.inv_ex(a)[0]
+    minv = 0.5 * (minv + minv.T)
+    dofs = torch.full((side,), ncell, dtype=torch.int64, device=dev)
+    dofs[slot] = torch.arange(ncell, dtype=torch.int64, device=dev)
+    return dofs[:nd_pad], minv, ndof
+
+
 def coarse_solve(hier: MGHierarchy, b: torch.Tensor) -> torch.Tensor:
     """Direct solve on the coarsest level: gather DOFs, apply the inverse
     (one matmul) or the Cholesky factor, scatter back.
@@ -249,7 +311,11 @@ def level_flags(hier: MGHierarchy, config: SolverConfig, mesh=None) -> tuple[str
     """Per level, "sharded" (the block-mesh smoother) or "single" (the
     single-device smoother on the global tensor): "sharded" where `mesh`
     splits the level and `sharded_eligible` holds (JAX mg.py:707-722).
-    Without a mesh, or on a one-block mesh, every level is "single"."""
+    Without a mesh, or on a one-block mesh, every level is "single".  Under
+    `config.interior_smoother="chebyshev"` every level is "plain" (the
+    smoother's plain PyTorch block, JAX mg.py:685)."""
+    if config.interior_smoother == "chebyshev":
+        return ("plain",) * hier.num_levels
     if mesh is None or mesh.size == 1:
         return ("single",) * hier.num_levels
     nlev = hier.num_levels
@@ -279,7 +345,7 @@ def hierarchy_block_lists(hier: MGHierarchy, config: SolverConfig, mesh=None):
     `ops.fused_smoother.LevelBlocks` on single-device levels,
     `fused_sharded.ShardedBlocks` (the stacked haloed coefficients and their
     blocks) on sharded ones, None for the coarsest.  Either kind's `tiles`
-    are the active tiles of the level's own grid.
+    are the active tiles of the level's own grid; "plain" levels have none.
     A CG loop builds this once and passes it to every `v_cycle` (JAX
     mg.py:729-768)."""
     flags = level_flags(hier, config, mesh)
@@ -287,13 +353,32 @@ def hierarchy_block_lists(hier: MGHierarchy, config: SolverConfig, mesh=None):
     smoothed = smoothed_levels(hier)
     out = []
     for level, c in enumerate(hier.levels):
-        if level not in smoothed:
+        if level not in smoothed or flags[level] == "plain":
             out.append(None)
         elif flags[level] == "sharded":
             out.append(fused_sharded.sharded_blocks(c, mesh, config.kernel_mode))
         else:
             out.append(fused_smoother.level_blocks(c, config, fdts[level]))
     return tuple(out)
+
+
+def chebyshev_block(x, b, c: stencil.LevelCoeffs, config: SolverConfig, emit_dot: bool = False,
+                    x_is_zero: bool = False):
+    """The Chebyshev smoothing block b^k, polynomial, b^k in plain PyTorch
+    (JAX mg.py:581-592): the same block on both strokes, the polynomial
+    being self-adjoint in the A inner product.  With `x_is_zero` the
+    argument `x` is ignored (it may be None).  Returns x', or (x', <x', b>)
+    with `emit_dot`, the dot in x's dtype."""
+    if x_is_zero:
+        x = torch.zeros_like(b)
+    for _ in range(config.boundary_iterations):
+        x = stencil.boundary_jacobi(x, b, c, config.jacobi_damping)
+    x = stencil.chebyshev_smooth(x, b, c, config.chebyshev_degree)
+    for _ in range(config.boundary_iterations):
+        x = stencil.boundary_jacobi(x, b, c, config.jacobi_damping)
+    if emit_dot:
+        return x, blas.dot(x, b, c.solvable)
+    return x
 
 
 def v_cycle(
@@ -331,6 +416,8 @@ def v_cycle(
 
     def smooth(level, xl, rhs_l, forward, **kw):
         c = hier.levels[level]
+        if flags[level] == "plain":
+            return chebyshev_block(xl, rhs_l, c, config, **kw)
         if flags[level] == "sharded":
             sb = block_lists[level]
             return fused_sharded.smooth_level_sharded(
@@ -357,16 +444,21 @@ def v_cycle(
     for level in range(nlev - 1):
         c = hier.levels[level]
         x_zero = level > 0 or not use_initial_guess
-        fuse = flags[level] == "single" or fused_smoother.residual_fusable(config, forward=True)
+        fuse = flags[level] == "single" or (
+            flags[level] == "sharded" and fused_smoother.residual_fusable(config, forward=True)
+        )
         if x_zero and fuse:
             xl, r = smooth(level, None, rhs[level], True, x_is_zero=True, emit_residual=True)
         else:
             xl = smooth(level, None if x_zero else x, rhs[level], True, x_is_zero=x_zero)
-            # In the hierarchy's dtype, as the JAX package forms it here.
-            r = fused_cg.residual(
-                xl.to(dtype), rhs[level].to(dtype), c.diag, c.ew0, c.ew1, c.ew2,
-                mode=config.kernel_mode, tiles=block_lists[level].tiles,
-            )
+            if flags[level] == "plain":
+                r = stencil.residual(xl, rhs[level], c)
+            else:
+                # In the hierarchy's dtype, as the JAX package forms it here.
+                r = fused_cg.residual(
+                    xl.to(dtype), rhs[level].to(dtype), c.diag, c.ew0, c.ew1, c.ew2,
+                    mode=config.kernel_mode, tiles=block_lists[level].tiles,
+                )
         sols[level] = xl
         rhs[level + 1] = transfer.restrict(r, hier.levels[level + 1].solvable).to(vdt[level + 1])
 

@@ -9,7 +9,8 @@ hand-written kernels; on CPU tensors their plain versions.  With a block
 mesh (`solve(..., mesh=)`, `parallel.mesh.BlockMesh`) the V-cycle runs the
 block-mesh smoother on the levels it flags "sharded", and when the fine
 level is one of them the CG step is `parallel.fused_sharded.cg_step_sharded`
-(JAX mgpcg.py:173-193).
+(JAX mgpcg.py:173-193).  `solve(..., interrupt_check=)` passes a host
+callback to the CG loop (`solver.cg`), checked once per iteration.
 """
 
 from __future__ import annotations
@@ -89,8 +90,9 @@ def _finish_problem(hier: mg_mod.MGHierarchy, fine, fine_full: bool) -> PoissonP
 def fine_tiles(problem: PoissonProblem, block_lists=None) -> fused_smoother.Tiles:
     """The active tiles of the finest CG operator's grid, for the CG-step
     and residual kernels: those of the V-cycle's `block_lists`
-    (`mg.hierarchy_block_lists`) when given, else built here (a host sync)."""
-    if block_lists is not None:
+    (`mg.hierarchy_block_lists`) when given and the fine level has them,
+    else built here (a host sync)."""
+    if block_lists is not None and block_lists[0] is not None:
         return block_lists[0].tiles
     fine = problem.fine
     return fused_smoother.level_tiles(fine.solvable, fused_smoother.band_cells(fine.band))
@@ -119,10 +121,14 @@ def solve(
     x0: torch.Tensor | None = None,
     config: SolverConfig | None = None,
     mesh=None,
+    interrupt_check=None,
 ) -> cg_mod.CGResult:
     """MGPCG solve of the dimensionless Poisson system over solvable cells,
     on the device that holds `problem` and `rhs`; `mesh` (a one-card
-    `BlockMesh` on that device) runs the sharded levels block by block."""
+    `BlockMesh` on that device) runs the sharded levels block by block.
+    `interrupt_check(iteration) -> bool`, evaluated on the host after each
+    CG iteration, stops the solve early when it returns True (JAX
+    mgpcg.solve's cooperative interruption)."""
     if config is None:
         config = SolverConfig()
     fine = problem.fine
@@ -183,4 +189,5 @@ def solve(
         project_null_space=config.project_null_space,
         preconditioner_dot=preconditioner_dot,
         record_residuals=config.record_residuals,
+        interrupt_check=interrupt_check,
     )

@@ -372,6 +372,64 @@ def test_frame_loop_kernels_match_plain_fp64(device):
     assert got[1].window_reused and got[2].window_reused
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_coarse_system_device_on_the_card(device, dtype):
+    """The coarse system built on the card: two builds bit-equal (every kept
+    entry written once, no float accumulation), the slot map equal to the
+    CPU build's, the inverse within the dtype's rounding of it (fp32: 1e-4
+    of the largest entry, two LU factorizations; fp64: 1e-10)."""
+    labels, weights, mg_levels = _sine_domain(32)
+    cfg = SolverConfig(mg_dtype=dtype)
+    c = mg.build_hierarchy(labels, weights, mg_levels, cfg, device=device).levels[-1]
+    ndof = int(c.solvable.sum())
+    for nd_pad in (max(256, -(-ndof // 256) * 256), 64):
+        first = mg.coarse_system_device(c, nd_pad)
+        again = mg.coarse_system_device(c, nd_pad)
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(first, again))
+        cpu = mg.coarse_system_device(stencil.LevelCoeffs(*(t.cpu() for t in c)), nd_pad)
+        assert torch.equal(first[0].cpu(), cpu[0]) and int(first[2]) == int(cpu[2]) == ndof
+        assert _rel(first[1].cpu(), cpu[1]) <= (1e-4 if dtype == torch.float32 else 1e-10)
+
+
+def test_run_fused_on_the_card_matches_run(device):
+    """Two fused frames on the card against run(): the kernels launched in
+    the chunk, iterations equal, fields within 1e-10 (fp64)."""
+    n = 32
+    phi, velocity = sdf.splash_scene((n, n, n), device=device)
+    weights = sdf.open_box_weights((n, n, n), device=device)
+    cfg = SolverConfig(tolerance=1e-9, max_iterations=300)
+    done = []
+    fused_smoother.PASS_LAUNCHES.reset()
+    fused_cg.STEP_LAUNCHES.reset()
+    f_phi, f_vel, f_p, stats = simulate.run_fused(phi, velocity, weights, num_frames=2, dt=1.0 / 60.0,
+                                                  config=cfg, chunk=2, on_chunk=lambda k, s: done.append(k))
+    assert done == [2] and f_p.is_cuda
+    assert fused_cg.STEP_LAUNCHES.count == sum(stats["iterations"]) > 0 and fused_smoother.PASS_LAUNCHES.count > 0
+    want = simulate.run(phi, velocity, weights, num_frames=2, dt=1.0 / 60.0, config=cfg)
+    assert list(stats["iterations"]) == [w.iterations for w in want]
+    assert _rel(f_p, want[-1].pressure) <= 1e-10 and _rel(f_phi, want[-1].liquid_phi) <= 1e-12
+    assert all(_rel(f, w) <= 1e-10 for f, w in zip(f_vel, want[-1].velocity))
+
+
+def test_chebyshev_projection_on_the_card(device):
+    """The Chebyshev smoother runs its plain block (no chunk-kernel launch)
+    while the CG step launches its kernel once per iteration."""
+    n = 24
+    phi, velocity = sdf.splash_scene((n, n, n), device=device)
+    cfg = SolverConfig(tolerance=1e-10, max_iterations=200, interior_smoother="chebyshev", chebyshev_degree=3)
+    setup = free_surface.build_setup(phi, sdf.open_box_weights((n, n, n), device=device), config=cfg)
+    for counter in (fused_smoother.PASS_LAUNCHES, fused_cg.STEP_LAUNCHES):
+        counter.reset()
+    got = free_surface.project(setup, velocity, config=cfg)
+    assert got.cg.converged and fused_smoother.PASS_LAUNCHES.count == 0
+    assert fused_cg.STEP_LAUNCHES.count == got.cg.iterations > 0
+    want = free_surface.project(setup, velocity, config=SolverConfig(
+        tolerance=1e-10, max_iterations=200, interior_smoother="chebyshev", chebyshev_degree=3,
+        kernel_mode="torch"))
+    assert got.cg.iterations == want.cg.iterations and _rel(got.pressure, want.pressure) <= 1e-10
+
+
 def _random_level(device, shape, dtype, ew_dtype, seed=0, dead=True):
     """A level of random coefficients with the stencil's invariants (edge
     weights only between solvable cells, fields zero off them), 85% of the

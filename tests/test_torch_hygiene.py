@@ -1,6 +1,7 @@
 """Import hygiene and configuration of the PyTorch port.
 
-The port must import and run a small projection with JAX blocked, must not
+The port must import and run a small projection, two fused frames and a
+checkpoint with JAX blocked, must not
 import Triton or start nvcc at import time, must refuse the JAX package's
 TPU-only knobs, and must refuse kernel_mode="cuda" on CPU tensors.
 """
@@ -44,6 +45,13 @@ cfg = SolverConfig(tolerance=1e-6)
 setup = free_surface.build_setup(phi, sdf.open_box_weights((n, n, n), device="cpu"), config=cfg)
 result = free_surface.project(setup, velocity, config=cfg)
 assert result.cg.converged and float(result.max_divergence) < 1e-4
+import tempfile
+from geometricmultigridpressuresolver_tpu_torch.models import simulate
+phi1, vel1, p1, stats = simulate.run_fused(phi, velocity, sdf.open_box_weights((n, n, n), device="cpu"),
+                                           num_frames=2, config=cfg, chunk=2)
+with tempfile.TemporaryDirectory() as d:
+    simulate.save_state(d, 2, phi1, vel1, p1)
+    assert simulate.load_state(d)[0] == 2
 assert "triton" not in sys.modules
 assert not any(m == "jax" or m.startswith(("jax.", "geometricmultigridpressuresolver_tpu."))
                for m in sys.modules if sys.modules[m] is not None)
@@ -75,7 +83,7 @@ def test_no_jax_import_in_port_sources():
     [
         ("pallas_interpret", True), ("pallas_block_t", 32), ("pallas_block_y", 48),
         ("pallas_pad_coarse", True), ("transfer_mode", "mm"),
-        ("setup_fusion", "fused"), ("interior_smoother", "chebyshev"),
+        ("setup_fusion", "fused"),
     ],
 )
 def test_config_refuses_tpu_only_knobs(knob, value):
@@ -91,6 +99,7 @@ def test_config_refuses_tpu_only_knobs(knob, value):
         ("mg_field_dtype", None, torch.bfloat16, torch.float16),
         ("mg_field_dtype", None, torch.bfloat16, torch.float32),
         ("advection", "semi_lagrangian", "upwind", "maccormack"),
+        ("interior_smoother", None, "chebyshev", "jacobi"),
     ],
 )
 def test_config_accepts_ported_knobs(knob, default, good, bad):
@@ -107,7 +116,7 @@ def test_config_accepts_ported_knobs(knob, default, good, bad):
 def test_frame_loop_knob_defaults_match_jax():
     from geometricmultigridpressuresolver_tpu.config import SolverConfig as JaxConfig
 
-    for knob in ("window_slack", "advect_substeps"):
+    for knob in ("window_slack", "advect_substeps", "chebyshev_degree"):
         assert getattr(SolverConfig(), knob) == getattr(JaxConfig(), knob), knob
 
 

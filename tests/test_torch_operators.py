@@ -60,6 +60,8 @@ _STENCIL_OPS = {
     "boundary_jacobi": lambda m, x, b, c: m.boundary_jacobi(x, b, c),
     "rb_gauss_seidel_fwd": lambda m, x, b, c: m.rb_gauss_seidel(x, b, c, True),
     "rb_gauss_seidel_bwd": lambda m, x, b, c: m.rb_gauss_seidel(x, b, c, False),
+    "chebyshev_smooth": lambda m, x, b, c: m.chebyshev_smooth(x, b, c),
+    "chebyshev_smooth_deg3": lambda m, x, b, c: m.chebyshev_smooth(x, b, c, 3),
 }
 
 
@@ -145,6 +147,83 @@ def test_v_cycle_matches_jax(hier16, use_gs):
     np.testing.assert_allclose(float(rho), float(np.sum(want * b)), rtol=1e-12)
 
 
+CHEBYSHEV = dict(interior_smoother="chebyshev", chebyshev_degree=3)
+
+
+def test_chebyshev_v_cycle_matches_jax(hier16):
+    """The Chebyshev smoother's V-cycle (tests/test_vcycle.py's option
+    test): plain PyTorch on every level, as the JAX package's jnp path."""
+    _, _, _, jh, th, x, b = hier16
+    jcfg, tcfg = JaxConfig(**CHEBYSHEV), SolverConfig(**CHEBYSHEV)
+    assert mg.level_flags(th, tcfg) == ("plain",) * th.num_levels
+    assert mg.hierarchy_block_lists(th, tcfg) == (None,) * th.num_levels
+    want = jax_mg.v_cycle(jh, jnp.zeros_like(jnp.asarray(b)), jnp.asarray(b), jcfg)
+    z, rho = mg.v_cycle(th, None, torch.from_numpy(b), tcfg, emit_fine_dot=True)
+    np.testing.assert_allclose(z.numpy(), np.asarray(want), rtol=0, atol=ATOL)
+    np.testing.assert_allclose(float(rho), float(np.sum(np.asarray(want) * b)), rtol=1e-12)
+    warm = np.asarray(jax_mg.v_cycle(jh, want, jnp.asarray(b), jcfg, use_initial_guess=True))
+    got = mg.v_cycle(th, z, torch.from_numpy(b), tcfg, use_initial_guess=True)
+    np.testing.assert_allclose(got.numpy(), warm, rtol=0, atol=ATOL)
+
+
+def test_chebyshev_mgpcg_matches_jax(hier16):
+    """MGPCG with the Chebyshev smoother (degree 3) against the JAX package
+    on tests/test_vcycle.py's fixture: iterations equal, the solution within
+    1e-10 of its largest entry."""
+    from geometricmultigridpressuresolver_tpu.solver import mgpcg as jax_mgpcg
+    from geometricmultigridpressuresolver_tpu_torch.solver import mgpcg
+
+    labels, weights, mg_levels, jh, _, _, _ = hier16
+    rng = np.random.default_rng(4)
+    solv = np.asarray(jh.levels[0].solvable)
+    rhs = np.where(solv, rng.standard_normal(labels.shape), 0.0)
+    jcfg = JaxConfig(tolerance=1e-8, max_iterations=200, **CHEBYSHEV)
+    tcfg = SolverConfig(tolerance=1e-8, max_iterations=200, **CHEBYSHEV)
+    want = jax_mgpcg.solve(jax_mgpcg.build_problem(labels, weights, mg_levels, jcfg), jnp.asarray(rhs), config=jcfg)
+    got = mgpcg.solve(mgpcg.build_problem(labels, weights, mg_levels, tcfg, device="cpu"),
+                      torch.from_numpy(rhs), config=tcfg)
+    assert got.converged and got.iterations == int(want.iterations) < 60
+    scale = float(np.abs(np.asarray(want.x)).max())
+    assert float(np.abs(got.x.numpy() - np.asarray(want.x)).max()) <= 1e-10 * scale
+
+
+def test_interrupt_check_matches_jax():
+    """tests/test_vcycle.py::test_cooperative_interruption on the port: a
+    host callback after each CG iteration stops the solve with the current
+    iterate; never interrupting changes nothing.  The interrupted iterate
+    equals the JAX package's."""
+    from geometricmultigridpressuresolver_tpu.solver import mgpcg as jax_mgpcg
+    from geometricmultigridpressuresolver_tpu_torch.solver import mgpcg
+
+    labels, weights, mg_levels = helpers.expanded_domain(helpers.simple_domain, 16)
+    config = SolverConfig(tolerance=1e-12, max_iterations=100)
+    problem = mgpcg.build_problem(labels, weights, mg_levels, config, device="cpu")
+    rhs = helpers.random_solvable_field(labels, seed=31)
+    seen = []
+
+    def interrupt_after_3(iteration):
+        seen.append(iteration)
+        return iteration >= 3
+
+    result = mgpcg.solve(problem, torch.from_numpy(rhs), config=config, interrupt_check=interrupt_after_3)
+    assert result.iterations == 3 and not result.converged
+    assert seen == [1, 2, 3]
+    assert bool(torch.isfinite(result.x).all()) and float(blas.l2_norm(result.x, problem.fine.solvable)) > 0
+    jcfg = JaxConfig(tolerance=1e-12, max_iterations=100)
+    want = jax_mgpcg.solve(
+        jax_mgpcg.build_problem(labels, weights, mg_levels, jcfg), jnp.asarray(rhs), config=jcfg,
+        interrupt_check=lambda it: it >= 3,
+    )
+    assert int(want.iterations) == 3
+    np.testing.assert_allclose(result.x.numpy(), np.asarray(want.x), rtol=0, atol=1e-10)
+
+    base = mgpcg.solve(problem, torch.from_numpy(rhs), config=SolverConfig(tolerance=1e-8))
+    never = mgpcg.solve(problem, torch.from_numpy(rhs), config=SolverConfig(tolerance=1e-8),
+                        interrupt_check=lambda it: False)
+    assert base.iterations == never.iterations and never.converged
+    assert torch.equal(base.x, never.x)
+
+
 # ---------------------------------------------------------------------------
 # Symmetry suite (tests/test_symmetry.py) on the port
 # ---------------------------------------------------------------------------
@@ -213,6 +292,13 @@ def _sym_case(name, labels, hier):
                 x = mg.v_cycle(hier, x, r, cfg, use_initial_guess=True)
             return x
         return op, c.solvable
+    if name == "chebyshev_vcycle":
+        cfg = SolverConfig(**CHEBYSHEV)
+
+        def op(r):
+            x = mg.v_cycle(hier, None, r, cfg)
+            return mg.v_cycle(hier, x, r, cfg, use_initial_guess=True)
+        return op, c.solvable
     if name == "single_level_cycle":
         cfg = SolverConfig(max_mg_levels=1, use_gauss_seidel=False)
         h1 = mg.build_hierarchy(labels, None, 5, cfg, device="cpu")
@@ -226,7 +312,7 @@ def _sym_case(name, labels, hier):
     [
         "boundary_jacobi_block", "gauss_seidel_schedule", "coarse_direct_solve",
         "restriction_prolongation", "two_level_vcycle_gs", "two_level_vcycle_jacobi",
-        "full_vcycle_gs", "full_vcycle_jacobi", "single_level_cycle",
+        "full_vcycle_gs", "full_vcycle_jacobi", "single_level_cycle", "chebyshev_vcycle",
     ],
 )
 def test_port_symmetry(port_hier16, name):

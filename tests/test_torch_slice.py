@@ -3,7 +3,8 @@
 Same numpy inputs through both packages.  In fp64 the CG iteration count is
 equal and the pressure agrees to 1e-10 relative (to its max magnitude); in
 the bench's dtype mix (fp32 solve, fp32 V-cycle, bf16 edge weights) the
-iteration count is within 1 and the pressure agrees to 1e-4 relative.
+iteration count is within 1, the pressure agrees to 1e-4 relative and the
+recomputed relative residual to 10%.
 Each comparison runs once from the port's own setup and once from the JAX
 setup carried over with `interop` (bit-identical hierarchies).
 """
@@ -102,6 +103,10 @@ def test_slice_bench_dtypes_match_jax(scene, source):
     assert abs(tr.cg.iterations - int(jr.cg.iterations)) <= 1
     assert _rel(tr.pressure.numpy(), jr.pressure) < 1e-4
     assert tr.pressure.dtype == torch.float32
+    # The recomputed fp32 residual: 3.208e-6 here against the JAX package's
+    # 3.095e-6; the fp32 recomputation's own rounding is of this order, and
+    # 10% holds it.
+    np.testing.assert_allclose(float(tr.residual_rel_l2), float(jr.residual_rel_l2), rtol=0.1)
 
 
 def test_warm_start_matches_jax(scene, fp64_runs):
