@@ -61,8 +61,23 @@ Phases (any failure exits non-zero and prints no result line):
      run_fused in turns, twice; the host syncs per frame of each path
      (torch.cuda.set_sync_debug_mode); at frame 1's geometry the coarse
      system built on the card against the host's, and the setup's host
-     coarse factorization against the on-card one, timed.
-Every kernel's entry in the kernels JSON has its launches on its path, its
+     coarse factorization against the on-card one, timed;
+ 10. the reference's test node (diagnostics.py) at its scene's gridSize
+     128 (a 256^3 window, 6 levels, fp64), launch counts exact in each
+     block: the CG block against the host's assembled-matrix oracle, again
+     with kernel_mode="torch" and with dx = 1/128, and its solve held
+     against the plain path; the fp64 chunk kernel, CG step and residual
+     at the node's fine window against their plain versions, timed; 50
+     warm-started V-cycles (a residual launch each) against the plain
+     path; the smoother block against the plain path, with its phase
+     times; the symmetry block at 32; utils.profiling.instrumented_solve on
+     phase 3's problem (x bit-equal to mgpcg.solve's, the same launches)
+     and vcycle_stage_times by level; the assembled baseline
+     (project_assembled) against project on the 128^3 splash; the
+     diagnostics CLI in a process of its own.  Phase 5's profile goes
+     through utils.profiling.trace.
+Every kernel's entry in the kernels JSON has its launches on its path (and
+on phase 10's blocks, `launches_test_node`), its
 error against the plain version, its time, the plain version's, its bound
 (bytes over 3.35 TB/s or float32 operations over 67 TFLOP/s, the larger)
 for the work this run's data needs -- inputs read on the solvable cells
@@ -277,12 +292,13 @@ def main(argv=None) -> int:
     import scipy.sparse
     import scipy.sparse.linalg
 
-    from geometricmultigridpressuresolver_tpu_torch import parallel
+    from geometricmultigridpressuresolver_tpu_torch import diagnostics, parallel
     from geometricmultigridpressuresolver_tpu_torch.config import SolverConfig
-    from geometricmultigridpressuresolver_tpu_torch.models import free_surface, sdf, simulate
+    from geometricmultigridpressuresolver_tpu_torch.models import assembled, free_surface, sdf, simulate
     from geometricmultigridpressuresolver_tpu_torch.ops import _cuda, blas, fused_cg, fused_smoother, stencil
     from geometricmultigridpressuresolver_tpu_torch.parallel import fused_sharded, halo
     from geometricmultigridpressuresolver_tpu_torch.solver import mg, mgpcg
+    from geometricmultigridpressuresolver_tpu_torch.utils import profiling
 
     torch.backends.cuda.matmul.allow_tf32 = False  # the coarse matmul in full fp32
     torch.backends.cudnn.allow_tf32 = False
@@ -700,15 +716,18 @@ def main(argv=None) -> int:
     # the device's busy share against the profiled and the best unprofiled
     # wall time.
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     mgpcg.solve(setup.problem, rhs, config=config)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    trace_dir = tempfile.mkdtemp(prefix="chip_smoke_trace_")
+    with profiling.trace(trace_dir) as prof:
         t0 = time.perf_counter()
         mgpcg.solve(setup.problem, rhs, config=config)
         torch.cuda.synchronize()
         wall_prof = time.perf_counter() - t0
+    trace_bytes = Path(trace_dir, "trace.json").stat().st_size
+    shutil.rmtree(trace_dir)
+    print(f"[5] utils.profiling.trace wrote a Chrome trace of {trace_bytes:,} bytes")
     device_ms, host_ms = {}, {}
     for e in prof.key_averages():
         if getattr(e, "device_type", None) != DeviceType.CUDA:
@@ -1196,6 +1215,249 @@ def main(argv=None) -> int:
     # with the coarse system's condition number.
     require(minv_rel <= 1e-2 and solve_rel <= 1e-2, "the card's coarse inverse differs from the host's")
 
+    # ---- 10. the test node, the stage profiler and the assembled baseline ------------------
+    # The reference's test scene (testMultigrid.hip, gridSize 128) expands to
+    # a 256^3 domain with 6 levels; the test node solves in fp64.
+    node = max(n // 2, 16)
+    cfg_node = SolverConfig(tolerance=1e-5, max_iterations=1000)
+    cfg_node_t = dataclasses.replace(cfg_node, kernel_mode="torch")
+    base_n, weights_n = diagnostics.build_complex_domain(node, use_solid_sphere=True)
+    labels_n, exp_w_n, offset_n, levels_n = diagnostics.expand(base_n, weights_n)
+    problem_n = mgpcg.build_problem(labels_n, exp_w_n, levels_n, cfg_node, device=dev)
+    hier_n = problem_n.hier
+    print(f"[10] test node gridSize {node}: expanded {labels_n.shape}, {levels_n} levels "
+          f"{[tuple(c.shape) for c in hier_n.levels]}, fp64")
+
+    def sum_counts(*dicts):
+        return {k: sum(d[k] for d in dicts) for k in dicts[0]}
+
+    # [10a] The CG block: MGPCG on the card against the host's assembled CG.
+    cg_kw = dict(grid_size=node, use_complex_domain=True, use_solid_sphere=True, tolerance=1e-5,
+                 max_iterations=1000, device=dev)
+    reset_counts()
+    r_cg = diagnostics.run_conjugate_gradient_test(**cg_kw)
+    torch.cuda.synchronize()
+    launches_10a = read_counts()
+    expected_10a = expected_launches(hier_n, cfg_node, r_cg["iterations"])
+    print(f"[10a] CG block: {r_cg['dofs']:,} DOFs, {r_cg['iterations']} iterations, recomputed relative L2 "
+          f"{r_cg['relative_l2']:.3e}, L-inf {r_cg['l_infinity']:.3e}; grid {r_cg['grid_seconds']:.4f} s against "
+          f"the oracle's {r_cg['oracle_seconds']:.4f} s; max relative difference vs oracle "
+          f"{r_cg['max_relative_difference_vs_oracle']:.3e} [{card}]")
+    print(f"[10a] kernel launches {launches_10a}, expected {expected_10a}")
+    require(launches_10a == expected_10a, "CG block launch counts differ from the plan")
+    require(r_cg["relative_l2"] <= 1e-5, "CG block: recomputed relative residual above 1e-5")
+    require(r_cg["max_relative_difference_vs_oracle"] <= 1e-3, "CG block disagrees with the assembled oracle")
+    r_cg_t = diagnostics.run_conjugate_gradient_test(**cg_kw, kernel_mode="torch")
+    r_cg_dx = diagnostics.run_conjugate_gradient_test(**cg_kw, dx=1.0 / node)
+    dx_rel = abs(r_cg_dx["relative_l2"] - r_cg["relative_l2"]) / r_cg["relative_l2"]
+    print(f"[10a] kernel_mode='torch': {r_cg_t['iterations']} iterations, relative L2 {r_cg_t['relative_l2']:.3e}, "
+          f"grid {r_cg_t['grid_seconds']:.4f} s; dx=1/{node}: relative L2 {r_cg_dx['relative_l2']:.3e} "
+          f"({dx_rel:.3e} relative to dx=1), L-inf {r_cg_dx['l_infinity']:.3e} in physical units")
+    require(r_cg_t["iterations"] == r_cg["iterations"], "CG block: kernel and plain iterations differ")
+    require(dx_rel <= 1e-9, "CG block: the dx round trip changed the relative residual")
+    # The block's solve once more, kernels and plain, to hold the solutions
+    # against each other (the block returns none).
+    rhs_n = torch.as_tensor(diagnostics.delta_spike_rhs(
+        labels_n.shape, solvable=problem_n.fine.solvable.cpu().numpy(), offset=offset_n,
+        base_shape=base_n.shape), device=dev)
+    x_k = mgpcg.solve(problem_n, rhs_n, config=cfg_node)
+    x_p = mgpcg.solve(problem_n, rhs_n, config=cfg_node_t)
+    _, node_rel = rel_err(x_k.x, x_p.x)
+    print(f"[10a] the block's solve, kernels vs plain: iterations {x_k.iterations} vs {x_p.iterations}, "
+          f"solution max relative difference {node_rel:.3e}")
+    require(x_k.iterations == x_p.iterations == r_cg["iterations"] and node_rel <= 1e-9,
+            "CG block: kernel and plain solutions differ by more than 1e-9")
+    # The fp64 kernels at the test node's fine window, against their plain
+    # versions and timed beside them (phase 4 times the fp32 ones at the
+    # bench window).
+    c_n = hier_n.levels[0]
+    blk_n = fused_smoother.level_blocks(c_n, cfg_node)
+    xn, bn = rand_field(c_n).double(), rand_field(c_n).double()
+    ops_n = (c_n.diag, c_n.ew0, c_n.ew1, c_n.ew2)
+    beta_n = torch.tensor(0.7371, dtype=torch.float64, device=dev)
+    fp64_node_err = 0.0
+    for case, kw in cases.items():
+        xx = None if kw.get("x_is_zero") else xn
+        cfg_c = case_config(cfg_node, case)
+        got = as_tuple(fused_smoother.smooth_level(xx, bn, c_n, cfg_c, blocks=blk_n, **kw))
+        want = as_tuple(fused_smoother.smooth_level_torch(xx, bn, c_n, cfg_c, blocks=blk_n, **kw))
+        fp64_node_err = max([fp64_node_err] + [rel_err(g, w)[1] for g, w in zip(got, want)])
+    got = fused_cg.search_matvec_dot(xn, bn, beta_n, *ops_n, mode="cuda", tiles=blk_n.tiles)
+    got = got + (fused_cg.residual(xn, bn, *ops_n, mode="cuda", tiles=blk_n.tiles),)
+    want = fused_cg.search_matvec_dot_torch(xn, bn, beta_n, *ops_n) + (fused_cg.residual_torch(xn, bn, *ops_n),)
+    fp64_node_err = max([fp64_node_err] + [rel_err(g, w)[1] for g, w in zip(got, want)])
+    print(f"[10a] fp64 chunk kernel (every case), CG step and residual vs plain at {tuple(c_n.shape)}: max relative "
+          f"error {fp64_node_err:.3e} (limit 1e-12); active tiles {blk_n.tiles.active.numel()}/{n_tiles(blk_n.tiles)}")
+    require(fp64_node_err <= 1e-12, "fp64 kernels at the test node's window differ from plain")
+    ns_n, nc_n = int(c_n.solvable.sum()), c_n.diag.numel()
+    node_rows = {
+        "smoother": (
+            lambda: fused_smoother.smooth_level(xn, bn, c_n, cfg_node, False, emit_dot=True, blocks=blk_n),
+            lambda: fused_smoother.smooth_level_torch(xn, bn, c_n, cfg_node, False, emit_dot=True, blocks=blk_n),
+            bound(active_bytes(ns_n, (xn, bn, c_n.inv_diag, *ops_n[1:], c_n.band), nc_n, (xn,)),
+                  block_ops(upstroke, ns_n, blk_n.tiles.band.numel(), True)),
+        ),
+        "cg_step": (
+            lambda: fused_cg.search_matvec_dot(xn, bn, beta_n, *ops_n, mode="cuda", tiles=blk_n.tiles),
+            lambda: fused_cg.search_matvec_dot_torch(xn, bn, beta_n, *ops_n),
+            bound(active_bytes(ns_n, (xn, bn, *ops_n), nc_n, (xn, bn)), OPS_CG_STEP * ns_n),
+        ),
+        "residual": (
+            lambda: fused_cg.residual(xn, bn, *ops_n, mode="cuda", tiles=blk_n.tiles),
+            lambda: fused_cg.residual_torch(xn, bn, *ops_n),
+            bound(active_bytes(ns_n, (xn, bn, *ops_n), nc_n, (xn,)), OPS_RESIDUAL * ns_n),
+        ),
+    }
+    for name, (kern, plain_fn, (b_ms, b_by)) in node_rows.items():
+        k_ms, p_ms = cuda_ms(kern, reps), cuda_ms(plain_fn, reps)
+        print(f"[10a] fp64 {name} at {tuple(c_n.shape)} ({ns_n:,} solvable cells, {ns_n / nc_n:.3f} of the window): "
+              f"kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, bound over the solvable cells {b_ms:.4f} ms ({b_by}); "
+              f"fp32 at the bench window (phase 4): {times[name][0]:.4f} ms [{card}]")
+
+    # [10b] The one-level V-cycle block: 50 warm-started cycles, each forming
+    # its fine residual apart.
+    cycles = 50
+    labels_s, _, _, levels_s = diagnostics.expand(diagnostics.build_simple_domain(node))
+    hier_s1 = mg.build_hierarchy(labels_s, None, levels_s, cfg_node, device=dev)
+    blocks_s1 = mg.hierarchy_block_lists(hier_s1, cfg_node)
+    per_cycle = sum(
+        len(fused_smoother.chunk_plan(len(fused_smoother.schedule_for(cfg_node, fwd)), blocks_s1[lv].tiles.depth))
+        for lv in mg.smoothed_levels(hier_s1) for fwd in (True, False)
+    )
+    reset_counts()
+    t0 = time.perf_counter()
+    r_v = diagnostics.run_one_level_vcycle_test(grid_size=node, num_cycles=cycles, device=dev)
+    torch.cuda.synchronize()
+    t_v = time.perf_counter() - t0
+    launches_10b = read_counts()
+    expected_10b = dict.fromkeys(launches_10b, 0)
+    expected_10b.update(smoother=per_cycle * cycles, residual=cycles)
+    r_v_t = diagnostics.run_one_level_vcycle_test(grid_size=node, num_cycles=cycles, kernel_mode="torch", device=dev)
+    checked = [i for i, w in enumerate(r_v_t["l2"]) if w > 1e-10 * r_v_t["l2"][0]]
+    v_rel = max(abs(r_v["l2"][i] - r_v_t["l2"][i]) / r_v_t["l2"][i] for i in checked)
+    l2_v = r_v["l2"]
+    factors_v = [b / a for a, b in zip(l2_v, l2_v[1:])]
+    first8 = float(np.mean(factors_v[:8]))
+    print(f"[10b] one-level V-cycle block, {cycles} cycles on {hier_s1.num_levels} levels in {t_v:.3f} s: L2 "
+          f"{l2_v[0]:.3e} -> {l2_v[-1]:.3e}; mean convergence factor {r_v['mean_convergence_factor']:.4f} over all "
+          f"{cycles}, {first8:.4f} over the first 8 (the JAX package's test length), {factors_v[-1]:.4f} in the "
+          f"last; per cycle {[round(f, 3) for f in factors_v]}; vs plain: max relative L2 difference "
+          f"{v_rel:.3e} over the {len(checked)} cycles above 1e-10 of the first [{card}]")
+    print(f"[10b] kernel launches {launches_10b}, expected {expected_10b}")
+    # The JAX package's bound, over its test's 8 cycles: the asymptotic
+    # factor of this V(1,1) cycle grows with the grid (0.425 at gridSize 32,
+    # 0.482 at 64, in both packages) and passes 0.5 at 128 (0.526).
+    require(first8 < 0.5, "one-level V-cycle: the first 8 cycles converge slower than 0.5 per cycle")
+    require(l2_v[-1] < 1e-10 * l2_v[0], "one-level V-cycle: 50 cycles did not reach 1e-10 of the initial error")
+    require(launches_10b == expected_10b, "one-level V-cycle launch counts differ from the plan")
+    require(v_rel <= 1e-9, "one-level V-cycle: kernel and plain L2 differ by more than 1e-9")
+
+    # [10c] The smoother block: the chunk kernel entered with a nonzero x.
+    iters_s = 20
+    reset_counts()
+    r_s = diagnostics.run_smoother_test(grid_size=node, max_smoother_iterations=iters_s, device=dev)
+    torch.cuda.synchronize()
+    launches_10c = read_counts()
+    expected_10c = dict.fromkeys(launches_10c, 0)
+    expected_10c["smoother"] = iters_s * len(fused_smoother.chunk_plan(
+        len(fused_smoother.schedule_for(cfg_node, True)), fused_smoother.CHUNK_DEPTH))
+    r_s_t = diagnostics.run_smoother_test(grid_size=node, max_smoother_iterations=iters_s, kernel_mode="torch",
+                                          device=dev)
+    s_rel = max(abs(a - b) / b for a, b in zip(r_s["residual_l2"], r_s_t["residual_l2"]))
+    print(f"[10c] smoother block, {iters_s} iterations: residual L2 {r_s['residual_l2'][0]:.4e} -> "
+          f"{r_s['residual_l2'][-1]:.4e} (vs plain: max relative difference {s_rel:.3e}); block "
+          f"{r_s['avg_smooth_seconds'] * 1e3:.3f} ms (plain {r_s_t['avg_smooth_seconds'] * 1e3:.3f} ms), "
+          f"boundary phase {r_s['avg_boundary_phase_seconds'] * 1e3:.3f} ms, interior phase "
+          f"{r_s['avg_interior_phase_seconds'] * 1e3:.3f} ms (plain stencil ops) [{card}]")
+    print(f"[10c] kernel launches {launches_10c}, expected {expected_10c}")
+    require(r_s["residual_l2"][-1] < r_s["residual_l2"][0], "smoother block: the residual did not fall")
+    require(launches_10c == expected_10c, "smoother block launch counts differ from the plan")
+    require(s_rel <= 1e-10, "smoother block: kernel and plain residuals differ by more than 1e-10")
+
+    # [10d] The symmetry block.
+    reset_counts()
+    r_sym = diagnostics.run_symmetry_test(32, device=dev)
+    launches_10d = read_counts()
+    print(f"[10d] symmetry at 32: { {k: f'{v:.3e}' for k, v in r_sym.items()} }; kernel launches {launches_10d}")
+    require(len(r_sym) == 6 and all(v < 1e-10 for v in r_sym.values()), "an operator is not symmetric to 1e-10")
+    require(launches_10d["smoother"] > 0, "the symmetry block never launched the chunk kernel")
+    launches_node = sum_counts(launches_10a, launches_10b, launches_10c, launches_10d)
+
+    # [10e] instrumented_solve on phase 3's bench problem and right-hand side.
+    reset_counts()
+    lines = []
+    x_inst, stage_t = profiling.instrumented_solve(setup.problem, rhs, config=config, printer=lines.append)
+    torch.cuda.synchronize()
+    launches_10e = read_counts()
+    res_ref = mgpcg.solve(setup.problem, rhs, config=config)
+    expected_10e = expected_launches(hier, config, res_ref.iterations)
+    expected_10e["residual"] -= 1  # no recomputed residual: a solve, not a projection
+    stage_sum = sum(stage_t.seconds.values())
+    print(f"[10e] instrumented_solve at {setup.expanded_shape}: {stage_t.calls['matvec']} iterations "
+          f"(mgpcg.solve: {res_ref.iterations}); x bit-equal {torch.equal(x_inst, res_ref.x)}; launches "
+          f"{launches_10e}, expected {expected_10e}")
+    for line in stage_t.report().splitlines():
+        print(f"[10e]   {line}")
+    print(f"[10e] sum of the stages {stage_sum * 1e3:.3f} ms against the best unprofiled solve "
+          f"{solves['kernels'][0] * 1e3:.3f} ms ({stage_sum / solves['kernels'][0]:.2f}x) [{card}]")
+    require(torch.equal(x_inst, res_ref.x), "instrumented_solve's x differs from mgpcg.solve's")
+    require(stage_t.calls["matvec"] == res_ref.iterations == iters, "instrumented_solve's iterations differ")
+    require(launches_10e == expected_10e, "instrumented_solve's launch counts differ from the solve's")
+
+    # [10f] The per-level V-cycle split on the bench hierarchy.
+    split = profiling.vcycle_stage_times(hier, rhs, config, warmup=1, reps=3)
+    kinds = ("smooth (down)", "residual+restrict", "prolong", "smooth (up)")
+    print(f"[10f] one V-cycle at {setup.expanded_shape} by level, ms per call (mean of 3), each stage ending on a "
+          f"device sync [{card}]:")
+    print(f"[10f]   {'level':<22}" + "".join(f"{k:>20}" for k in kinds))
+    for lv in range(nlev - 1):
+        row = [1e3 * split.seconds[f"L{lv} {k}"] / split.calls[f"L{lv} {k}"] for k in kinds]
+        print(f"[10f]   L{lv} {str(tuple(hier.levels[lv].shape)):<19}" + "".join(f"{v:>20.4f}" for v in row))
+    coarse_key = f"L{nlev - 1} coarse direct solve"
+    print(f"[10f]   {coarse_key}: {1e3 * split.seconds[coarse_key] / split.calls[coarse_key]:.4f} ms; cycle total "
+          f"{1e3 * sum(split.seconds.values()) / 3:.4f} ms")
+
+    # [10g] The assembled baseline against MGPCG on the 128^3 splash, fp64.
+    cfg_b = SolverConfig(tolerance=1e-5)
+    shape_b = (node,) * 3
+    phi_b, vel_b = sdf.splash_scene(shape_b, device=dev)
+    w_b = sdf.open_box_weights(shape_b, device=dev)
+    t_mg = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        setup_b = free_surface.build_setup(phi_b, w_b, config=cfg_b)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        res_b = free_surface.project(setup_b, vel_b, config=cfg_b)
+        torch.cuda.synchronize()
+        t_mg.append((t1 - t0, time.perf_counter() - t1))
+    t0 = time.perf_counter()
+    p_base, v_base, div_base = assembled.project_assembled(phi_b, w_b, vel_b, tolerance=1e-5)
+    t_base = time.perf_counter() - t0
+    base_rel = float(np.abs(res_b.pressure.cpu().numpy() - p_base).max() / np.abs(p_base).max())
+    v_rel_b = max(rel_err(torch.as_tensor(v, device=dev), u)[1] for v, u in zip(v_base, res_b.velocity))
+    print(f"[10g] {node}^3 splash, fp64, tol 1e-5: MGPCG setup {t_mg[-1][0]:.4f} s + project {t_mg[-1][1]:.4f} s "
+          f"({res_b.cg.iterations} iterations; first call {sum(t_mg[0]):.4f} s), assembled baseline "
+          f"{t_base:.4f} s (host diagonal-PCG) [{card}]")
+    print(f"[10g] pressure max relative difference {base_rel:.3e}, velocity {v_rel_b:.3e}; max divergence MGPCG "
+          f"{float(res_b.max_divergence):.3e}, baseline {div_base:.3e}")
+    require(base_rel <= 1e-4, "the assembled baseline's pressure differs from MGPCG's by more than 1e-4")
+    require(np.isfinite(div_base) and bool(torch.isfinite(res_b.max_divergence)), "non-finite divergence")
+
+    # [10h] The CLI on the card, in a process of its own.
+    cli = [sys.executable, "-m", "geometricmultigridpressuresolver_tpu_torch.diagnostics", "--grid-size", "32",
+           "--test-symmetry", "--test-one-level-v-cycle", "--num-cycles", "8"]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cli, cwd=Path(__file__).resolve().parent, capture_output=True, text=True, timeout=600)
+    sym_lines = [line for line in proc.stdout.splitlines() if line.endswith(("[OK]", "[FAIL]"))]
+    print(f"[10h] gmg-torch-diagnostics --grid-size 32 --test-symmetry --test-one-level-v-cycle --num-cycles 8: "
+          f"exit {proc.returncode} in {time.perf_counter() - t0:.1f} s; {sum(l.endswith('[OK]') for l in sym_lines)}"
+          f"/{len(sym_lines)} symmetry lines [OK]; {proc.stdout.strip().splitlines()[-1] if proc.stdout.strip() else ''}")
+    require(proc.returncode == 0, f"the diagnostics CLI failed: {proc.stderr[-2000:]}")
+    require(len(sym_lines) == 6 and all(line.endswith("[OK]") for line in sym_lines),
+            "a symmetry line of the CLI is not [OK]")
+
     src = "geometricmultigridpressuresolver_tpu_torch/csrc/"
     jax_src = "geometricmultigridpressuresolver_tpu/"
     # The band-strip and bf16-field rows are launches of the chunk kernel
@@ -1225,7 +1487,8 @@ def main(argv=None) -> int:
         # the block-mesh kernels on the block-mesh projection's.
         path = launches_h if name == "smoother_bf16" else launches_m if name in names[5:] else launches
         k.update(launches=path[counter], launches_frame_loop=launches_loop[counter],
-                 launches_fused_frames=launches_fused[counter], max_abs_err=errs[name],
+                 launches_fused_frames=launches_fused[counter], launches_test_node=launches_node[counter],
+                 max_abs_err=errs[name],
                  ms=times[name][0], plain_ms=times[name][1], bound_ms=bounds[name][0],
                  bound_by=bounds[name][1], bound_active_ms=bounds[name][0],
                  bound_window_ms=bounds_window[name][0], bound_window_by=bounds_window[name][1],

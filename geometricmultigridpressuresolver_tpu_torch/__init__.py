@@ -13,7 +13,12 @@ Layers:
   ops/                  -- domain construction, stencils, transfers, BLAS,
                            and the kernel wrappers (fused_smoother, fused_cg)
   solver/               -- V-cycle engine, PCG driver, MGPCG
-  models/               -- scenes, the free-surface projection, assembly
+  models/               -- scenes, the free-surface projection, the frame
+                           loop, and the assembled-matrix baseline
+  diagnostics.py        -- the reference's test node: fixtures, four test
+                           blocks and the gmg-torch-diagnostics CLI
+  utils/                -- stage timings, the instrumented solve, the
+                           per-level V-cycle split and a profiler trace
   interop.py            -- build the port's containers from numpy arrays
 """
 

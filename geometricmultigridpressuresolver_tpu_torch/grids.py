@@ -16,6 +16,7 @@ Conventions used throughout the port, identical to
 from __future__ import annotations
 
 import enum
+import math
 
 
 class CellLabel(enum.IntEnum):
@@ -41,9 +42,18 @@ def is_solvable(labels):
     return labels >= int(CellLabel.INTERIOR)
 
 
+def is_dirichlet(labels):
+    """Mask of DIRICHLET cells; numpy arrays and torch tensors alike."""
+    return labels == int(CellLabel.DIRICHLET)
+
+
 def face_shape(cell_shape, axis):
     """Shape of the face array along `axis` for a given cell-grid shape."""
     shape = list(cell_shape)
     shape[axis] += 1
     return tuple(shape)
 
+
+def cell_count(shape) -> int:
+    """Cells of a grid of `shape`."""
+    return math.prod(int(n) for n in shape)

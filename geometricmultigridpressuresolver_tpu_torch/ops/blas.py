@@ -28,6 +28,21 @@ def inf_norm(x: torch.Tensor, solvable: torch.Tensor) -> torch.Tensor:
     return torch.max(torch.where(solvable, ax, torch.zeros_like(ax)))
 
 
+def scale(x: torch.Tensor, s) -> torch.Tensor:
+    """s * x (the reference's scaleVector)."""
+    return s * x
+
+
+def axpy(y: torch.Tensor, scale, x: torch.Tensor) -> torch.Tensor:
+    """y + scale * x (the reference's addToVector)."""
+    return y + scale * x
+
+
+def xpay(x: torch.Tensor, scale, y: torch.Tensor) -> torch.Tensor:
+    """x + scale * y (the reference's addVectors with a scaled second term)."""
+    return x + scale * y
+
+
 def masked_mean(x: torch.Tensor, solvable: torch.Tensor) -> torch.Tensor:
     """Mean over solvable cells (null-space projection for all-Neumann)."""
     count = torch.sum(solvable.to(x.dtype))

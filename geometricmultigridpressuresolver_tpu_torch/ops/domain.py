@@ -27,7 +27,7 @@ from typing import Sequence
 import numpy as np
 import torch
 
-from geometricmultigridpressuresolver_tpu_torch.grids import CellLabel, is_solvable
+from geometricmultigridpressuresolver_tpu_torch.grids import CellLabel, face_shape, is_solvable
 
 EXT = int(CellLabel.EXTERIOR)
 DIR = int(CellLabel.DIRICHLET)
@@ -168,6 +168,18 @@ def align_tile_extents(expanded, padding: int):
     return tuple(out)
 
 
+def expand_face_weights(
+    base_weights: Sequence[torch.Tensor], expanded_shape: Sequence[int], offset: Sequence[int]
+) -> list:
+    """Copy per-axis face weights into the expanded index space (zero
+    elsewhere); weights exist only at the finest level."""
+    out = []
+    for axis, w in enumerate(base_weights):
+        target = face_shape(expanded_shape, axis)
+        out.append(pad(w, [(offset[a], target[a] - offset[a] - w.shape[a]) for a in range(3)], 0.0))
+    return out
+
+
 def set_boundary_labels(labels: torch.Tensor, face_weights: Sequence | None) -> torch.Tensor:
     """Relabel INTERIOR -> BOUNDARY next to Dirichlet/exterior cells or
     non-unit incident face weights."""
@@ -277,6 +289,22 @@ def build_level_coefficients(
         "inv_diag": inv_diag,
         "ew": edge_weights,
     }
+
+
+def build_label_hierarchy(
+    expanded_labels: torch.Tensor, mg_levels: int, max_levels: int | None = None
+) -> list:
+    """Coarsen labels level by level (no lane padding), stopping before the
+    first level without a DOF (the reference caps its level count there)."""
+    if max_levels is not None:
+        mg_levels = min(mg_levels, max_levels)
+    levels = [expanded_labels]
+    for _ in range(1, mg_levels):
+        coarse = coarsen_labels(levels[-1])
+        if not bool(is_solvable(coarse).any()):
+            break
+        levels.append(coarse)
+    return levels
 
 
 # ---------------------------------------------------------------------------

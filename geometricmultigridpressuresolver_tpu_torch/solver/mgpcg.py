@@ -11,11 +11,13 @@ block-mesh smoother on the levels it flags "sharded", and when the fine
 level is one of them the CG step is `parallel.fused_sharded.cg_step_sharded`
 (JAX mgpcg.py:173-193).  `solve(..., interrupt_check=)` passes a host
 callback to the CG loop (`solver.cg`), checked once per iteration.
+`solve_stages` builds the loop's operators once per solve; the stage
+profiler (`utils.profiling.instrumented_solve`) runs the same ones.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Sequence
+from typing import Callable, NamedTuple, Sequence
 
 import torch
 
@@ -115,27 +117,24 @@ def fine_residual(problem: PoissonProblem, config: SolverConfig, tiles=None):
     return residual
 
 
-def solve(
-    problem: PoissonProblem,
-    rhs: torch.Tensor,
-    x0: torch.Tensor | None = None,
-    config: SolverConfig | None = None,
-    mesh=None,
-    interrupt_check=None,
-) -> cg_mod.CGResult:
-    """MGPCG solve of the dimensionless Poisson system over solvable cells,
-    on the device that holds `problem` and `rhs`; `mesh` (a one-card
-    `BlockMesh` on that device) runs the sharded levels block by block.
-    `interrupt_check(iteration) -> bool`, evaluated on the host after each
-    CG iteration, stops the solve early when it returns True (JAX
-    mgpcg.solve's cooperative interruption)."""
-    if config is None:
-        config = SolverConfig()
+class SolveStages(NamedTuple):
+    """The per-solve operators of `solve`'s CG loop (`solve_stages`)."""
+
+    step_p: Callable            # (z, p, beta) -> (p', A p', <p', A p'>)
+    residual: Callable          # (x, b) -> masked b - A x
+    preconditioner: Callable    # r -> z
+    preconditioner_dot: Callable | None  # r -> (z, <r, z>); None without a V-cycle
+
+
+def solve_stages(problem: PoissonProblem, config: SolverConfig, mesh=None) -> SolveStages:
+    """The operators one solve runs, with their solve-invariant data built
+    once: the fused CG step, the warm start's residual, and the V-cycle (or
+    inverse-diagonal) preconditioner, with and without the fine rho dot.
+    `solve` and `utils.profiling.instrumented_solve` both run these, so the
+    two launch the same kernels in the same order."""
     fine = problem.fine
     sd = config.solve_dtype
     mg_dtype = config.mg_dtype_resolved
-    if mesh is not None:
-        fused_sharded.check_device(mesh, rhs)
 
     # Band-cell lists, narrowed coefficients, active tiles and sharded
     # levels' stacked coefficients: once per solve.
@@ -177,17 +176,39 @@ def solve(
         def preconditioner(r):
             return fine.inv_diag * r
 
+    return SolveStages(step_p, fine_residual(problem, config, tiles), preconditioner, preconditioner_dot)
+
+
+def solve(
+    problem: PoissonProblem,
+    rhs: torch.Tensor,
+    x0: torch.Tensor | None = None,
+    config: SolverConfig | None = None,
+    mesh=None,
+    interrupt_check=None,
+) -> cg_mod.CGResult:
+    """MGPCG solve of the dimensionless Poisson system over solvable cells,
+    on the device that holds `problem` and `rhs`; `mesh` (a one-card
+    `BlockMesh` on that device) runs the sharded levels block by block.
+    `interrupt_check(iteration) -> bool`, evaluated on the host after each
+    CG iteration, stops the solve early when it returns True (JAX
+    mgpcg.solve's cooperative interruption)."""
+    if config is None:
+        config = SolverConfig()
+    if mesh is not None:
+        fused_sharded.check_device(mesh, rhs)
+    stages = solve_stages(problem, config, mesh)
     return cg_mod.solve_pcg_fused(
-        step_p,
-        fine_residual(problem, config, tiles),
-        preconditioner,
-        rhs.to(sd),
-        fine.solvable,
+        stages.step_p,
+        stages.residual,
+        stages.preconditioner,
+        rhs.to(config.solve_dtype),
+        problem.fine.solvable,
         x0=x0,
         tolerance=config.tolerance,
         max_iterations=config.max_iterations,
         project_null_space=config.project_null_space,
-        preconditioner_dot=preconditioner_dot,
+        preconditioner_dot=stages.preconditioner_dot,
         record_residuals=config.record_residuals,
         interrupt_check=interrupt_check,
     )

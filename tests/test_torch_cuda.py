@@ -724,3 +724,53 @@ def test_cg_kernels_are_deterministic(device):
     assert a.converged and a.iterations == b.iterations > 0
     history = [r.residual_history[: r.iterations + 1] for r in (a, b)]
     assert torch.equal(*history) and torch.equal(a.x, b.x)
+
+
+def test_diagnostics_blocks_kernel_vs_plain_fp64(device):
+    """The test node's four blocks at 32^3 in fp64, the kernels against
+    kernel_mode="torch" on the card: the CG block's iterations equal and
+    its relative residual within 1e-6 relative; the V-cycle's per-cycle L2
+    within 1e-9 relative while above 1e-10 of the first (below that the
+    error is rounding); the smoother's residual norms within 1e-10
+    relative; every symmetry < 1e-10."""
+    from geometricmultigridpressuresolver_tpu_torch import diagnostics
+
+    cg_kw = dict(grid_size=32, use_solid_sphere=True, tolerance=1e-9, max_iterations=500, device=device)
+    got = diagnostics.run_conjugate_gradient_test(**cg_kw)
+    want = diagnostics.run_conjugate_gradient_test(**cg_kw, kernel_mode="torch")
+    assert got["iterations"] == want["iterations"] > 0
+    assert abs(got["relative_l2"] - want["relative_l2"]) <= 1e-6 * want["relative_l2"]
+    assert got["max_relative_difference_vs_oracle"] < 1e-6
+    got = diagnostics.run_one_level_vcycle_test(grid_size=32, num_cycles=8, device=device)
+    want = diagnostics.run_one_level_vcycle_test(grid_size=32, num_cycles=8, kernel_mode="torch", device=device)
+    for g, w in zip(got["l2"], want["l2"]):
+        if w > 1e-10 * want["l2"][0]:
+            assert abs(g - w) <= 1e-9 * w
+    assert got["mean_convergence_factor"] < 0.5
+    got = diagnostics.run_smoother_test(grid_size=32, max_smoother_iterations=6, device=device)
+    want = diagnostics.run_smoother_test(grid_size=32, max_smoother_iterations=6, kernel_mode="torch",
+                                         device=device)
+    np.testing.assert_allclose(got["residual_l2"], want["residual_l2"], rtol=1e-10, atol=0)
+    for mode in ("auto", "torch"):
+        for name, v in diagnostics.run_symmetry_test(32, kernel_mode=mode, device=device).items():
+            assert v < 1e-10, (mode, name, v)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_instrumented_solve_bit_equal_on_the_card(device, dtype):
+    from geometricmultigridpressuresolver_tpu_torch.utils import profiling
+
+    n = 48
+    cfg = SolverConfig(solve_dtype=dtype, mg_ew_dtype=torch.bfloat16 if dtype == torch.float32 else None)
+    phi, velocity = sdf.splash_scene((n,) * 3, device=device, dtype=dtype)
+    setup = free_surface.build_setup(phi, sdf.open_box_weights((n,) * 3, device=device, dtype=dtype), config=cfg)
+    rhs = free_surface.embed_window(
+        free_surface.negative_divergence(setup.liquid_mask, velocity, setup.weights),
+        setup.window_start, setup.base_pads, setup.expanded_shape,
+    )
+    x, times = profiling.instrumented_solve(setup.problem, rhs, config=cfg, print_stats=False)
+    result = mgpcg.solve(setup.problem, rhs, config=cfg)
+    assert torch.equal(x, result.x)
+    assert times.calls["matvec"] == result.iterations > 0
+    stages = profiling.vcycle_stage_times(setup.problem.hier, rhs, cfg, warmup=1, reps=2)
+    assert f"L{setup.problem.hier.num_levels - 1} coarse direct solve" in stages.seconds

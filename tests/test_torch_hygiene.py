@@ -15,9 +15,9 @@ import numpy as np
 import pytest
 import torch
 
-from geometricmultigridpressuresolver_tpu_torch import interop
+from geometricmultigridpressuresolver_tpu_torch import diagnostics, interop
 from geometricmultigridpressuresolver_tpu_torch.config import SolverConfig
-from geometricmultigridpressuresolver_tpu_torch.models import free_surface, sdf
+from geometricmultigridpressuresolver_tpu_torch.models import assembled, free_surface, sdf
 from geometricmultigridpressuresolver_tpu_torch.ops import _cuda
 from geometricmultigridpressuresolver_tpu_torch.solver import mg
 
@@ -173,6 +173,12 @@ _NO_CARD_CALLS = {
     "interop_level": lambda: interop.level_from_arrays(
         {f: np.zeros((4, 4, 4)) for f in ("solvable", "band", "diag", "inv_diag", "ew0", "ew1", "ew2")}
     ),
+    "diagnostics_symmetry": lambda: diagnostics.run_symmetry_test(8),
+    "diagnostics_smoother": lambda: diagnostics.run_smoother_test(8, max_smoother_iterations=1),
+    "project_assembled_numpy": lambda: assembled.project_assembled(
+        np.full((8, 8, 8), -1.0), [np.ones((9, 8, 8)), np.ones((8, 9, 8)), np.ones((8, 8, 9))],
+        [np.zeros((9, 8, 8)), np.zeros((8, 9, 8)), np.zeros((8, 8, 9))],
+    ),
 }
 
 
@@ -191,6 +197,14 @@ def test_cli_without_card_exits_nonzero(monkeypatch, capsys):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(SystemExit) as exc:
         simulate.main(["--n", "8", "--frames", "1"])
+    assert exc.value.code != 0
+    assert "--device cpu" in capsys.readouterr().err
+
+
+def test_diagnostics_cli_without_card_exits_nonzero(monkeypatch, capsys):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(SystemExit) as exc:
+        diagnostics.main(["--grid-size", "8", "--test-symmetry"])
     assert exc.value.code != 0
     assert "--device cpu" in capsys.readouterr().err
 
