@@ -76,8 +76,24 @@ Phases (any failure exits non-zero and prints no result line):
      (project_assembled) against project on the 128^3 splash; the
      diagnostics CLI in a process of its own.  Phase 5's profile goes
      through utils.profiling.trace.
+ 11. the mesh of ranks (parallel.distributed, parallel.dryrun.launch: spawned
+     processes, a file:// rendezvous), every rank on this one card -- a
+     rehearsal of the multi-card path: [11a] NCCL, a world of one rank,
+     the 64^3 splash in the bench configuration against a single-process
+     projection of the same scene; [11b] four ranks on a (2, 2, 1) mesh,
+     gloo with the CUDA tensors staged through pinned host memory, the
+     bench projection built with build_setup(mesh=), each rank checking its
+     launch and halo-exchange counts against the plan, its chunk-kernel
+     blocks and CG step on its haloed blocks against their plain versions,
+     and timing the best of 3 solves with each one's exchanges, staged
+     bytes, exchange and compute milliseconds; the pressure against phases
+     3 and 8 and the local DOFs against the total; [11c] two ranks on
+     (2, 1, 1), fp64, the 32^3 fractional sine fixture from a warm start
+     against the single process; [11d] the dryrun launcher's command line
+     in a process of its own.
 Every kernel's entry in the kernels JSON has its launches on its path (and
-on phase 10's blocks, `launches_test_node`), its
+on phase 10's blocks, `launches_test_node`, and per rank of [11b],
+`launches_distributed`), its
 error against the plain version, its time, the plain version's, its bound
 (bytes over 3.35 TB/s or float32 operations over 67 TFLOP/s, the larger)
 for the work this run's data needs -- inputs read on the solvable cells
@@ -195,12 +211,13 @@ def expected_launches(hier, config, iters: int, warm: bool = False, mesh=None) -
 
     from geometricmultigridpressuresolver_tpu_torch.ops import fused_smoother
     from geometricmultigridpressuresolver_tpu_torch.parallel import halo
+    from geometricmultigridpressuresolver_tpu_torch.parallel.mesh import DistMesh
     from geometricmultigridpressuresolver_tpu_torch.solver import mg
 
-    blocks = mg.hierarchy_block_lists(hier, config, mesh)
     flags = mg.level_flags(hier, config, mesh)
     narrow = mg.field_dtype(hier, config) == torch.bfloat16
     nlev = hier.num_levels
+    depth = fused_smoother.CHUNK_DEPTH  # every solve's tiles (level_tiles' default)
     single = sharded = gathers = unfused = 0
     for level in mg.smoothed_levels(hier):
         strokes = (True, False) if nlev > 1 else (True,)
@@ -210,12 +227,11 @@ def expected_launches(hier, config, iters: int, warm: bool = False, mesh=None) -
             residual = down and (flags[level] == "single" or fused_smoother.residual_fusable(config, True))
             unfused += down and not residual
             if flags[level] == "sharded":
-                depth = blocks[level][1].tiles.depth
                 outer = fused_smoother.chunk_plan(n, halo.H, forward, residual)
                 sharded += sum(len(fused_smoother.chunk_plan(ch.stop - ch.start, depth)) for ch in outer)
                 gathers += 1 + sum(not ch.zero for ch in outer) + len(outer) + int(residual)
             else:
-                single += len(fused_smoother.chunk_plan(n, blocks[level].tiles.depth))
+                single += len(fused_smoother.chunk_plan(n, depth))
     cycles = iters + 1
     fine_sharded = flags[0] == "sharded"
     once = 6 * sum(flags[lv] == "sharded" for lv in mg.smoothed_levels(hier)) + 4 * fine_sharded
@@ -226,7 +242,211 @@ def expected_launches(hier, config, iters: int, warm: bool = False, mesh=None) -
         "cg_step": 0 if fine_sharded else iters,
         "smoother_sharded": sharded * cycles,
         "cg_step_sharded": iters if fine_sharded else 0,
-        "halo": gathers * cycles + 4 * iters * fine_sharded + once,
+        # Across ranks no halo kernel runs: blocks travel by exchange.
+        "halo": 0 if isinstance(mesh, DistMesh) else gathers * cycles + 4 * iters * fine_sharded + once,
+    }
+
+
+def expected_exchanges(hier, config, iters: int, mesh, project: bool = True, warm: bool = False) -> int:
+    """Halo exchanges one rank of `mesh` (a `DistMesh`) makes in one
+    projection (`project`: the solve and the recomputed residual) or one
+    `mgpcg.solve`.  Once per solve: six coefficient arrays per sharded
+    level and the CG operator's four.  Per V-cycle and sharded level: on
+    the way down b, then x before every H-chunk but a zero-start one (and
+    x and b for an unfused residual), the restricted residual's one-cell
+    halo; on the way up the coarse correction's one-cell halo when the
+    level below is sharded too, then b and x before every H-chunk.  Per CG
+    iteration on a sharded fine level: z and p.  A warm start's residual
+    and the projection's recomputed one: x and b (the latter on the
+    solve's operator, whose four arrays are not exchanged again)."""
+    from geometricmultigridpressuresolver_tpu_torch.ops import fused_smoother
+    from geometricmultigridpressuresolver_tpu_torch.parallel import halo
+    from geometricmultigridpressuresolver_tpu_torch.solver import mg
+
+    flags = mg.level_flags(hier, config, mesh)
+    sharded = [lv for lv in mg.smoothed_levels(hier) if flags[lv] == "sharded"]
+    fine = flags[0] == "sharded"
+    per_cycle = 0
+    for lv in sharded:
+        down_len = len(fused_smoother.schedule_for(config, True))
+        fused = fused_smoother.residual_fusable(config, True)
+        down = fused_smoother.chunk_plan(down_len, halo.H, True, fused)
+        up = fused_smoother.chunk_plan(len(fused_smoother.schedule_for(config, False)), halo.H, False, False)
+        per_cycle += 1 + sum(not ch.zero for ch in down) + 2 * (not fused) + 1
+        per_cycle += (flags[lv + 1] == "sharded") + 1 + len(up)
+    total = 6 * len(sharded) + 4 * fine + (iters + 1) * per_cycle + 2 * fine * iters
+    return total + 2 * fine * warm + 2 * fine * project
+
+
+def sine_fixture(n: int, seed: int = 0):
+    """The parity tests' 32^3 fractional fixture (tests/helpers.py's
+    `expanded_domain(sine_dirichlet_domain, n, fractional=True)`) built with
+    the port's domain ops: (labels, face weights, mg levels) as numpy."""
+    import numpy as np
+    import torch
+
+    from geometricmultigridpressuresolver_tpu_torch.grids import CellLabel, face_shape
+    from geometricmultigridpressuresolver_tpu_torch.ops import domain
+
+    x, y, z = np.meshgrid(*[(np.arange(n) + 0.5) / n] * 3, indexing="ij")
+    phi = x - 0.5 + 0.25 * np.sin(2 * np.pi * y + 4 * np.pi * z)
+    base = np.where(phi <= 0, int(CellLabel.INTERIOR), int(CellLabel.DIRICHLET)).astype(np.int8)
+    expanded, _, mg_levels = domain.expand_domain(torch.from_numpy(base))
+    labels = expanded.numpy()
+    rng = np.random.default_rng(seed)
+    weights = []
+    for axis in range(3):
+        w = np.zeros(face_shape(labels.shape, axis))
+        lo, hi, inner = [slice(None)] * 3, [slice(None)] * 3, [slice(None)] * 3
+        lo[axis], hi[axis], inner[axis] = slice(0, -1), slice(1, None), slice(1, -1)
+        ext = int(CellLabel.EXTERIOR)
+        w[tuple(inner)] = ((labels[tuple(lo)] != ext) & (labels[tuple(hi)] != ext)).astype(float)
+        weights.append(w)
+    for w in weights:
+        mask = (w == 1.0) & (rng.random(w.shape) < 0.2)
+        w[mask] = 0.25 + 0.75 * rng.random(w.shape)[mask]
+    relabeled = domain.set_boundary_labels(expanded, [torch.from_numpy(w) for w in weights])
+    return relabeled.numpy(), weights, mg_levels
+
+
+def solvable_field(labels, seed: int):
+    """A seeded random field, zero off the solvable cells."""
+    import numpy as np
+
+    from geometricmultigridpressuresolver_tpu_torch.grids import CellLabel
+
+    x = np.random.default_rng(seed).standard_normal(labels.shape)
+    x[labels < int(CellLabel.INTERIOR)] = 0.0
+    return x
+
+
+def rank_bench(mesh, n: int, reps: int = 3) -> dict:
+    """Phase [11b], one rank of the mesh: the n^3 bench projection built with
+    `build_setup(mesh=)`, with launch and exchange counts exact against the
+    plan for this rank's mesh; this rank's chunk-kernel blocks and CG step
+    on its haloed blocks against their plain versions (the same functions
+    with kernel_mode="torch"); the best of `reps` solves with each one's
+    exchanges, staged bytes, exchange and compute milliseconds; peak device
+    memory.  Rank 0 returns the pressure."""
+    import dataclasses
+
+    import torch
+
+    from geometricmultigridpressuresolver_tpu_torch.models import free_surface, sdf
+    from geometricmultigridpressuresolver_tpu_torch.ops import fused_cg, fused_smoother
+    from geometricmultigridpressuresolver_tpu_torch.parallel import distributed, dryrun, fused_sharded, halo
+    from geometricmultigridpressuresolver_tpu_torch.solver import mg, mgpcg
+
+    dev = mesh.device
+    counters = (
+        fused_smoother.PASS_LAUNCHES, fused_smoother.NARROW_LAUNCHES, fused_cg.STEP_LAUNCHES,
+        fused_cg.RESIDUAL_LAUNCHES, fused_smoother.SHARDED_LAUNCHES, fused_cg.SHARDED_STEP_LAUNCHES,
+        halo.HALO_LAUNCHES,
+    )
+    config = dryrun.bench_config()
+    torch.cuda.reset_peak_memory_stats(dev)
+    phi, velocity = sdf.splash_scene((n, n, n), device=dev, dtype=torch.float32)
+    weights = sdf.open_box_weights((n, n, n), device=dev, dtype=torch.float32)
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    setup = free_surface.build_setup(phi, weights, config=config, mesh=mesh)
+    torch.cuda.synchronize(dev)
+    t_setup = time.perf_counter() - t0
+    for c in counters:
+        c.reset()
+    mesh.stats.reset()
+    t0 = time.perf_counter()
+    result = free_surface.project(setup, velocity, config=config, mesh=mesh)
+    torch.cuda.synchronize(dev)
+    t_project = time.perf_counter() - t0
+    launches = {c.name: c.count for c in counters}
+    exchanges = mesh.stats.exchanges
+    project_stats = dataclasses.asdict(mesh.stats)
+    hier = setup.problem.hier
+    iters = result.cg.iterations
+    expected = expected_launches(hier, config, iters, mesh=mesh)
+    expected_x = expected_exchanges(hier, config, iters, mesh)
+    require(launches == expected, f"rank {mesh.rank}: launches {launches}, expected {expected}")
+    require(exchanges == expected_x, f"rank {mesh.rank}: {exchanges} halo exchanges, expected {expected_x}")
+    flags = mg.level_flags(hier, config, mesh)
+    require(launches["smoother_sharded"] > 0 and launches["cg_step_sharded"] > 0,
+            f"rank {mesh.rank}: the rank-side block functions never ran")
+
+    # This rank's kernels against their plain versions on its haloed blocks.
+    gen = torch.Generator(device=dev).manual_seed(20261017 + mesh.rank)
+
+    def rand_field(c):
+        v = torch.randn(c.shape, generator=gen, device=dev, dtype=torch.float32)
+        return torch.where(c.solvable, v, torch.zeros_like(v))
+
+    config_t = dataclasses.replace(config, kernel_mode="torch")
+    errs = {"smoother_sharded": 0.0, "smoother_sharded_dot": 0.0, "cg_step_sharded": 0.0,
+            "cg_step_sharded_dot": 0.0}
+
+    def check(name, what, got, want, tol):
+        rel = rel_err(got, want)[1]
+        key = name + ("_dot" if got.dim() == 0 else "")
+        errs[key] = max(errs[key], rel)
+        require(rel <= tol, f"rank {mesh.rank} {name} {what}: relative error {rel:.3e} > {tol:g}")
+
+    for lv in (lv for lv in mg.smoothed_levels(hier) if flags[lv] == "sharded"):
+        c, shape = hier.levels[lv], hier.shapes[lv]
+        sb = fused_sharded.sharded_blocks(c, mesh, "auto", shape)
+        pre_t = fused_sharded.prehalo_coeffs(c, mesh, "torch", shape)
+        x, b = rand_field(c), rand_field(c)
+        for case, kw in (("down", dict(forward=True, x_is_zero=True, emit_residual=True)),
+                         ("up", dict(forward=False, emit_dot=True))):
+            xx = None if kw.get("x_is_zero") else x
+            got = fused_sharded.smooth_level_sharded(
+                xx, b, c, config, mesh=mesh, prehaloed=sb.prehaloed, blocks=sb.blocks, shape=shape, **kw)
+            torch.cuda.synchronize(dev)
+            want = fused_sharded.smooth_level_sharded(xx, b, c, config_t, mesh=mesh, prehaloed=pre_t, shape=shape, **kw)
+            for i, (g, w) in enumerate(zip(got, want)):
+                check("smoother_sharded", f"L{lv} {case} [{i}]", g, w, 1e-5 if g.dim() else 1e-4)
+    fine, shape0 = setup.problem.fine, hier.shapes[0]
+    pre_cg = fused_sharded.prehalo_cg_coeffs(fine, mesh, "auto", shape0)
+    z, p = rand_field(fine), rand_field(fine)
+    beta = torch.tensor(0.7371, dtype=torch.float32, device=dev)
+    got = fused_sharded.cg_step_sharded(z, p, beta, fine, config, mesh, pre_cg,
+                                        fused_sharded.stacked_cg_tiles(pre_cg), shape0)
+    torch.cuda.synchronize(dev)
+    want = fused_sharded.cg_step_sharded(z, p, beta, fine, config_t, mesh, shape=shape0)
+    for what, g, w in zip(("p'", "Ap'", "<p', Ap'>"), got, want):
+        check("cg_step_sharded", what, g, w, 1e-5 if g.dim() else 1e-4)
+
+    # The best of `reps` solves, each with its exchange counts and times.
+    rhs = free_surface.embed_window(
+        free_surface.negative_divergence(setup.liquid_mask, velocity, setup.weights),
+        setup.window_start, setup.base_pads, setup.expanded_shape,
+    )
+    solves = []
+    for _ in range(reps):
+        mesh.stats.reset()
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        res = mgpcg.solve(setup.problem, rhs, config=config, mesh=mesh)
+        torch.cuda.synchronize(dev)
+        wall = time.perf_counter() - t0
+        st = mesh.stats
+        solves.append(dict(
+            seconds=wall, iterations=res.iterations, exchanges=st.exchanges, bytes_staged=st.bytes_staged,
+            exchange_ms=st.exchange_s * 1e3, pack_ms=st.pack_s * 1e3, collectives=st.collectives,
+            collective_ms=st.collective_s * 1e3, compute_ms=(wall - st.exchange_s - st.collective_s) * 1e3,
+        ))
+        require(st.exchanges == expected_exchanges(hier, config, res.iterations, mesh, project=False),
+                f"rank {mesh.rank}: solve exchanges differ from the plan")
+    pressure = result.pressure
+    return {
+        "rank": mesh.rank, "coords": list(mesh.coords), "flags": list(flags), "iterations": iters,
+        "converged": result.cg.converged, "relative_residual": result.cg.relative_residual,
+        "recomputed_residual": float(result.residual_rel_l2),
+        "local_dofs": distributed.host_local_dofs(fine.solvable, mesh, shape0),
+        "block_shapes": [list(c.shape) for c in hier.levels], "launches": launches, "exchanges": exchanges,
+        "project_stats": project_stats,
+        "setup_s": t_setup, "project_s": t_project, "errs": errs, "solves": solves,
+        "peak_gib": torch.cuda.max_memory_allocated(dev) / 2**30,
+        "pressure_digest": [float(pressure.double().sum()), float(pressure.double().square().sum())],
+        "pressure": pressure.cpu() if mesh.rank == 0 else None,
     }
 
 
@@ -1458,6 +1678,103 @@ def main(argv=None) -> int:
     require(len(sym_lines) == 6 and all(line.endswith("[OK]") for line in sym_lines),
             "a symmetry line of the CLI is not [OK]")
 
+    # ---- 11. the mesh of ranks (torch.distributed) ---------------------------------------
+    # One card: every rank shares cuda:0, so this is a rehearsal of the
+    # multi-card path (halos and dots cross processes), not a speed-up.
+    from geometricmultigridpressuresolver_tpu_torch.parallel import dryrun
+
+    print(f"[11] card: {card_line()}")
+    t11 = time.perf_counter()
+    torch.cuda.empty_cache()
+    dryrun_job = "geometricmultigridpressuresolver_tpu_torch.parallel.dryrun"
+    # [11a] NCCL, a world of one rank: the 64^3 splash in the bench
+    # configuration against a single-process projection of the same scene.
+    m = 64
+    phi_a, vel_a = sdf.splash_scene((m, m, m), device=dev, dtype=torch.float32)
+    w_a = sdf.open_box_weights((m, m, m), device=dev, dtype=torch.float32)
+    single_a = free_surface.project(free_surface.build_setup(phi_a, w_a, config=config), vel_a, config=config)
+    scene_a = (phi_a.cpu().numpy(), tuple(v.cpu().numpy() for v in vel_a), tuple(w.cpu().numpy() for w in w_a))
+    t0 = time.perf_counter()
+    (r11a,) = dryrun.launch(f"{dryrun_job}:project_job", 1, "nccl", "cuda",
+                            dict(n=m, bench=True, fields=True, print_line=False, scene=scene_a), timeout=300)
+    _, rel_a = rel_err(torch.from_numpy(r11a["pressure"]), single_a.pressure.cpu())
+    print(f"[11a] NCCL, 1 rank, {m}^3 bench configuration: {time.perf_counter() - t0:.1f} s with the spawn; "
+          f"{r11a['iterations']} iterations (single process {single_a.cg.iterations}), pressure max relative "
+          f"difference {rel_a:.3e}; flags {r11a['flags']} (a one-rank mesh splits no level: the dots go "
+          f"through NCCL all_gather, the kernels are the single-device ones) [{card}]")
+    require(r11a["backend"] == "nccl" and r11a["converged"], "[11a] the NCCL rank did not converge")
+    require(r11a["iterations"] == single_a.cg.iterations, "[11a] iterations differ from the single process")
+    require(rel_a <= 1e-6, "[11a] pressure differs from the single process by more than 1e-6")
+
+    # [11b] Four ranks on a (2, 2, 1) mesh, all on cuda:0, gloo with host
+    # staging: the bench projection at n^3 built with build_setup(mesh=).
+    t0 = time.perf_counter()
+    r11b = dryrun.launch("chip_smoke:rank_bench", 4, "gloo", "cuda", dict(n=n), timeout=900)
+    t11b = time.perf_counter() - t0
+    ref_m = result_m.pressure.cpu()
+    for r in r11b:
+        best = min(r["solves"], key=lambda sv: sv["seconds"])
+        print(f"[11b] rank {r['rank']} {tuple(r['coords'])}: flags {r['flags']}, blocks {r['block_shapes'][:2]}, "
+              f"{r['local_dofs']:,} local DOFs, {r['iterations']} iterations, relative residual "
+              f"{r['relative_residual']:.3e} (recomputed {r['recomputed_residual']:.3e}), setup {r['setup_s']:.2f} s, "
+              f"project {r['project_s']:.2f} s, peak device memory {r['peak_gib']:.2f} GiB; launches "
+              f"{r['launches']}, {r['exchanges']} halo exchanges (exact); kernels vs plain on the haloed "
+              f"blocks {r['errs']} [{card}]")
+        print(f"[11b] rank {r['rank']} best of {len(r['solves'])} solves {best['seconds']:.4f} s; per solve: "
+              + "; ".join(f"{sv['seconds']:.4f} s, {sv['exchanges']} exchanges, {sv['bytes_staged']:,} bytes staged, "
+                          f"exchanges {sv['exchange_ms']:.1f} ms (packing {sv['pack_ms']:.1f}), "
+                          f"{sv['collectives']} collectives {sv['collective_ms']:.1f} ms, compute {sv['compute_ms']:.1f} ms"
+                          for sv in r["solves"]) + f" [{card}]")
+        require(r["converged"] and r["relative_residual"] <= 1e-5, f"[11b] rank {r['rank']} did not converge to 1e-5")
+        require(abs(r["iterations"] - iters) <= 1, f"[11b] rank {r['rank']}: iterations differ from phase 3 by more than 1")
+    require(len({r["iterations"] for r in r11b}) == 1, "[11b] the ranks' iterations differ")
+    require(len({tuple(r["pressure_digest"]) for r in r11b}) == 1, "[11b] the ranks' gathered pressures differ")
+    _, rel_b3 = rel_err(r11b[0]["pressure"], result.pressure.cpu())
+    _, rel_b8 = rel_err(r11b[0]["pressure"], ref_m)
+    dofs_b = sum(r["local_dofs"] for r in r11b)
+    print(f"[11b] 4 ranks in {t11b:.1f} s with the spawn: pressure max relative difference {rel_b3:.3e} from phase 3, "
+          f"{rel_b8:.3e} from phase 8's block mesh; local DOFs sum to {dofs_b:,} ({ndof:,}) [{card}]")
+    require(rel_b3 <= 1e-3 and rel_b8 <= 1e-3, "[11b] pressure differs from phases 3 and 8 by more than 1e-3")
+    require(dofs_b == ndof, "[11b] the ranks' local DOFs do not sum to the total")
+
+    # [11c] Two ranks on (2, 1, 1), fp64, the 32^3 fractional sine fixture
+    # from a warm start, against the single process.
+    t0 = time.perf_counter()
+    labels_c, weights_c, levels_c = sine_fixture(32)
+    rhs_c, x0_c = solvable_field(labels_c, 21), 0.1 * solvable_field(labels_c, 5)
+    kw_c = dict(tolerance=1e-8)
+    prob_c = mgpcg.build_problem(labels_c, weights_c, levels_c, SolverConfig(**kw_c), device=dev)
+    single_c = mgpcg.solve(prob_c, torch.from_numpy(rhs_c).to(dev), torch.from_numpy(x0_c).to(dev),
+                           SolverConfig(**kw_c))
+    r11c = dryrun.launch(f"{dryrun_job}:solve_job", 2, "gloo", "cuda",
+                         dict(labels=labels_c, weights=weights_c, mg_levels=levels_c, rhs=rhs_c,
+                              config_kwargs=kw_c, x0=x0_c), timeout=300)
+    x_c = np.zeros(labels_c.shape)
+    for r in r11c:
+        x_c[r["slices"]] = r["x"]
+    diff_c = float(np.abs(x_c - single_c.x.cpu().numpy()).max())
+    print(f"[11c] 2 ranks, fp64, {labels_c.shape} sine fixture, warm start, {time.perf_counter() - t0:.1f} s with "
+          f"the single process and the spawn: flags {r11c[0]['flags']}, "
+          f"{r11c[0]['iterations']} iterations (single process {single_c.iterations}), x max difference "
+          f"{diff_c:.3e}; launches {[r['launches'] for r in r11c]}")
+    require(r11c[0]["flags"][0] == "sharded", "[11c] the fine level does not run sharded")
+    require(all(r["iterations"] == single_c.iterations and r["converged"] for r in r11c),
+            "[11c] iterations differ from the single process")
+    require(diff_c <= 1e-12, "[11c] x differs from the single process by more than 1e-12")
+    require(all(r["launches"]["residual"] >= 1 for r in r11c), "[11c] the warm start launched no residual kernel")
+
+    # [11d] The launcher from the command line, in a process of its own.
+    cmd = [sys.executable, "-m", dryrun_job, "--world-size", "2", "--backend", "gloo", "--device", "cuda",
+           "--timeout", "300"]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=Path(__file__).resolve().parent, capture_output=True, text=True, timeout=400)
+    lines = [json.loads(line) for line in proc.stdout.splitlines() if line.startswith("{")]
+    print(f"[11d] {' '.join(cmd[1:])}: exit {proc.returncode} in {time.perf_counter() - t0:.1f} s; "
+          + "; ".join(f"rank {d['rank']}: {d['iterations']} iterations, {d['local_dofs']} local DOFs, "
+                      f"halos {d['halo_ms']:.1f} ms, {d['staged_bytes']:,} bytes staged" for d in lines))
+    require(proc.returncode == 0 and len(lines) == 2, f"[11d] the launcher failed: {proc.stderr[-2000:]}")
+    print(f"[11] phase 11 took {time.perf_counter() - t11:.1f} s [{card}]")
+
     src = "geometricmultigridpressuresolver_tpu_torch/csrc/"
     jax_src = "geometricmultigridpressuresolver_tpu/"
     # The band-strip and bf16-field rows are launches of the chunk kernel
@@ -1486,7 +1803,8 @@ def main(argv=None) -> int:
         # The bf16-field smoother runs on the bf16-field projection's path,
         # the block-mesh kernels on the block-mesh projection's.
         path = launches_h if name == "smoother_bf16" else launches_m if name in names[5:] else launches
-        k.update(launches=path[counter], launches_frame_loop=launches_loop[counter],
+        k.update(launches=path[counter], launches_distributed=[r["launches"][counter] for r in r11b],
+                 launches_frame_loop=launches_loop[counter],
                  launches_fused_frames=launches_fused[counter], launches_test_node=launches_node[counter],
                  max_abs_err=errs[name],
                  ms=times[name][0], plain_ms=times[name][1], bound_ms=bounds[name][0],

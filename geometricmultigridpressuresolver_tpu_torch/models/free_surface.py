@@ -15,6 +15,16 @@ projected velocity out.
 `build_setup` runs steps 1-4 on `device`; `project` runs steps 5-9 on the
 device that holds the setup.  In a frame loop, `build_setup(reuse_from=
 previous_setup)` keeps the window shape sticky while the liquid fits.
+
+Across ranks (`mesh=` a `parallel.mesh.DistMesh`): `build_setup` runs the
+same deterministic build on every rank's device and keeps the rank's
+blocks of the problem (`parallel.sharding.shard_setup`); the window
+origin is a static tuple, as `window_start_static` is in the JAX
+package's sharded setup.  `project` forms the right-hand side, the
+writeback and the divergence audit on the whole base grid on every rank;
+only the solve is distributed, and the pressure blocks are gathered
+before the writeback.  A partitioned build and a distributed right-hand
+side are not ported (ROADMAP).
 """
 
 from __future__ import annotations
@@ -28,6 +38,8 @@ from geometricmultigridpressuresolver_tpu_torch import device as device_mod
 from geometricmultigridpressuresolver_tpu_torch.config import SolverConfig
 from geometricmultigridpressuresolver_tpu_torch.grids import CellLabel, MaterialLabel, face_shape
 from geometricmultigridpressuresolver_tpu_torch.ops import domain as domain_ops
+from geometricmultigridpressuresolver_tpu_torch.parallel import distributed, sharding
+from geometricmultigridpressuresolver_tpu_torch.parallel.mesh import DistMesh
 from geometricmultigridpressuresolver_tpu_torch.solver import cg as cg_mod
 from geometricmultigridpressuresolver_tpu_torch.solver import mg as mg_mod
 from geometricmultigridpressuresolver_tpu_torch.solver import mgpcg
@@ -247,11 +259,13 @@ def build_setup(
     density=None,
     device=None,
     reuse_from: ProjectionSetup | None = None,
+    mesh=None,
 ) -> ProjectionSetup:
-    """Steps 1-4 on `device` (default: liquid_phi's device if it is a
-    tensor, else the card):
+    """Steps 1-4 on `device` (default: the mesh's device, else liquid_phi's
+    device if it is a tensor, else the card):
     labels, valid faces, MG domain and weights, the compact window and the
-    hierarchy.
+    hierarchy.  With a `DistMesh`, every rank of the mesh builds the whole
+    setup and keeps its blocks of the problem (`sharding.shard_setup`).
 
     `reuse_from` (the previous frame's setup) keeps its window shape when
     the new liquid still fits it with the same padding and depth, so every
@@ -264,6 +278,8 @@ def build_setup(
     validate_density(density)
     validate_fields(liquid_phi, cut_cell_weights, solid_phi=solid_phi)
     sd = config.solve_dtype
+    if mesh is not None and device is None:
+        device = mesh.device
     dev = device_mod.of(liquid_phi, device)
     liquid_phi = torch.as_tensor(liquid_phi, dtype=sd, device=dev)
     cut_cell_weights = tuple(torch.as_tensor(w, dtype=sd, device=dev) for w in cut_cell_weights)
@@ -339,7 +355,7 @@ def build_setup(
     hier = mg_mod._finish_hierarchy(
         levels, flags, label_levels, config, validate=validate, host_fw=exp_weights
     )
-    return ProjectionSetup(
+    setup = ProjectionSetup(
         problem=mgpcg._finish_problem(hier, fine, fine_full),
         material=material,
         weights=cut_cell_weights,
@@ -350,6 +366,9 @@ def build_setup(
         padding=padding,
         mg_levels=mg_levels,
     )
+    if isinstance(mesh, DistMesh):
+        setup = sharding.shard_setup(setup, mesh, config)
+    return setup
 
 
 def embed_window(base, window_start, base_pads, expanded_shape) -> torch.Tensor:
@@ -423,7 +442,13 @@ def project(
     """Steps 5-9: RHS, warm start, MGPCG solve, writeback, audit, on the
     device that holds `setup` (inputs are moved there).  `mesh` (a one-card
     `parallel.mesh.BlockMesh`) runs the solve's sharded levels block by
-    block (`mgpcg.solve(..., mesh=)`)."""
+    block (`mgpcg.solve(..., mesh=)`).
+
+    With a `DistMesh` every rank calls this together with its share of the
+    setup (`build_setup(mesh=)`) and the whole velocity: steps 5, 6, 8 and
+    9 run on the whole base grid on every rank, the solve on the rank's
+    blocks; the result's `cg.x` and `pressure` are the gathered whole
+    grids, the recomputed residual norms are over all ranks."""
     if config is None:
         config = SolverConfig()
     validate_fields(setup.material, setup.weights, velocity=velocity)
@@ -446,14 +471,23 @@ def project(
         warm = torch.where(liquid_mask, old, torch.zeros_like(old))
         x0 = embed_window(warm, setup.window_start, setup.base_pads, setup.expanded_shape)
 
-    cg_result = mgpcg.solve(setup.problem, rhs, x0, config, mesh=mesh)
+    # The solve's operators also recompute its residual, so a sharded fine
+    # level's coefficients are exchanged once per projection.
+    problem = setup.problem
+    rhs, x0 = mgpcg.solve_inputs(problem, rhs, x0, config, mesh)
+    stages = mgpcg.solve_stages(problem, config, mesh)
+    cg_result = mgpcg.run_stages(stages, problem, rhs, x0, config)
+    rel_l2, linf = cg_mod.recomputed_residual_norms(
+        stages.residual, cg_result.x, rhs, problem.fine.solvable, stages.ranks,
+    )
+    if isinstance(mesh, DistMesh):
+        layout = mgpcg.fine_layout(problem, config, mesh)
+        cg_result = cg_result._replace(
+            x=distributed.gather_blocks(cg_result.x, mesh, layout.shape, layout.split)
+        )
 
     pressure = extract_window(cg_result.x, setup.window_start, setup.base_pads, rhs_base.shape)
     pressure = torch.where(liquid_mask, pressure, torch.zeros_like(pressure))
-    rel_l2, linf = cg_mod.recomputed_residual_norms(
-        mgpcg.fine_residual(setup.problem, config), cg_result.x, rhs,
-        setup.problem.fine.solvable,
-    )
     new_velocity = apply_pressure_gradient(velocity, pressure, valid_faces, grad_scale)
     max_div, total_div, avg_div = divergence_stats(
         liquid_mask, new_velocity, setup.weights, solid_velocity

@@ -11,6 +11,17 @@ natural region -- the exact transpose of each other.
 
 Both assume fields are zero outside the solvable set and mask their output
 to the destination level's solvable set.
+
+Across ranks (a `parallel.mesh.DistMesh`) a rank holds a block of a split
+level, and both transfers read one neighbour cell on each side of it
+(restriction x[2c-1] and x[2c+2], prolongation x[c-1] and x[c+1]; JAX
+transfer.py:90-110, :132-157).  The caller hands them the block grown by
+a one-cell `margin` on those axes (a one-cell halo exchange, or a slice
+of a replicated coarse grid with zeros past its edge); an axis with a
+margin is not zero-padded, and the result covers the block's own cells.
+Every output cell is formed from the same inputs in the same order as on
+one device, so a rank's block is bit-equal to that block of the whole
+transfer.
 """
 
 from __future__ import annotations
@@ -35,20 +46,28 @@ def _sl(x: torch.Tensor, axis: int, sl: slice) -> torch.Tensor:
     return x[tuple(idx)]
 
 
-def _restrict_axis(x: torch.Tensor, axis: int) -> torch.Tensor:
-    """1-D full weighting along `axis`: y[c] = sum_k w[k] * x[2c - 1 + k]."""
-    n = x.shape[axis]
-    xp = _pad_axis(x, axis, 1, 1)
+def _restrict_axis(x: torch.Tensor, axis: int, margin: int = 0) -> torch.Tensor:
+    """1-D full weighting along `axis`: y[c] = sum_k w[k] * x[2c - 1 + k]
+    (x zero past both ends, or carrying a one-cell `margin` there)."""
+    n = x.shape[axis] - 2 * margin
+    xp = x if margin else _pad_axis(x, axis, 1, 1)
     w = _R_WEIGHTS
     parts = [_sl(xp, axis, slice(s, s + n - 1, 2)) for s in range(4)]
     return w[0] * parts[0] + w[1] * parts[1] + w[2] * parts[2] + w[3] * parts[3]
 
 
-def restrict(fine: torch.Tensor, coarse_solvable: torch.Tensor) -> torch.Tensor:
-    """Full-weighting restriction, masked to the coarse solvable set."""
+def restrict_natural(fine: torch.Tensor, margin=(0, 0, 0)) -> torch.Tensor:
+    """The unmasked half-resolution restriction (no lane padding); `fine`
+    carries a one-cell margin on the axes where `margin` is 1."""
     out = fine
     for axis in range(3):
-        out = _restrict_axis(out, axis)
+        out = _restrict_axis(out, axis, int(margin[axis]))
+    return out
+
+
+def fit_coarse(out: torch.Tensor, coarse_solvable: torch.Tensor) -> torch.Tensor:
+    """A natural restriction zero-padded to the coarse shape (its lane
+    padding) and masked to the coarse solvable set."""
     if tuple(out.shape) != tuple(coarse_solvable.shape):
         widths = []
         for os_, cs in reversed(list(zip(out.shape, coarse_solvable.shape))):
@@ -57,11 +76,17 @@ def restrict(fine: torch.Tensor, coarse_solvable: torch.Tensor) -> torch.Tensor:
     return torch.where(coarse_solvable, out, torch.zeros_like(out))
 
 
-def _prolong_axis(x: torch.Tensor, axis: int) -> torch.Tensor:
+def restrict(fine: torch.Tensor, coarse_solvable: torch.Tensor) -> torch.Tensor:
+    """Full-weighting restriction, masked to the coarse solvable set."""
+    return fit_coarse(restrict_natural(fine), coarse_solvable)
+
+
+def _prolong_axis(x: torch.Tensor, axis: int, margin: int = 0) -> torch.Tensor:
     """1-D linear upsampling along `axis` (2x the restriction transpose):
-    out[2c] = 0.25 x[c-1] + 0.75 x[c],  out[2c+1] = 0.75 x[c] + 0.25 x[c+1]."""
-    c = x.shape[axis]
-    xp = _pad_axis(x, axis, 1, 1)
+    out[2c] = 0.25 x[c-1] + 0.75 x[c],  out[2c+1] = 0.75 x[c] + 0.25 x[c+1]
+    (x zero past both ends, or carrying a one-cell `margin` there)."""
+    c = x.shape[axis] - 2 * margin
+    xp = x if margin else _pad_axis(x, axis, 1, 1)
     lo, mid, hi = (_sl(xp, axis, slice(s, s + c)) for s in range(3))
     even = 0.25 * lo + 0.75 * mid
     odd = 0.75 * mid + 0.25 * hi
@@ -71,20 +96,23 @@ def _prolong_axis(x: torch.Tensor, axis: int) -> torch.Tensor:
     return stacked.reshape(shape)
 
 
-def prolong(coarse: torch.Tensor) -> torch.Tensor:
-    """Trilinear interpolation of a coarse field onto the fine grid, scaled 4x."""
+def prolong(coarse: torch.Tensor, margin=(0, 0, 0)) -> torch.Tensor:
+    """Trilinear interpolation of a coarse field onto the fine grid, scaled
+    4x; `coarse` carries a one-cell margin on the axes where `margin` is 1."""
     out = coarse
     for axis in range(3):
-        out = _prolong_axis(out, axis)
+        out = _prolong_axis(out, axis, int(margin[axis]))
     return 4.0 * out
 
 
 def prolong_add(
-    fine_x: torch.Tensor, coarse_x: torch.Tensor, fine_solvable: torch.Tensor
+    fine_x: torch.Tensor, coarse_x: torch.Tensor, fine_solvable: torch.Tensor, margin=(0, 0, 0)
 ) -> torch.Tensor:
-    """fine_x += 4 * trilerp(coarse_x), masked to the fine solvable set."""
-    natural = tuple(s // 2 for s in fine_x.shape)
+    """fine_x += 4 * trilerp(coarse_x), masked to the fine solvable set;
+    `coarse_x` carries a one-cell margin on the axes where `margin` is 1
+    (and its lane padding, cut here, on the others)."""
+    natural = tuple(s // 2 + 2 * int(m) for s, m in zip(fine_x.shape, margin))
     if tuple(coarse_x.shape) != natural:
         coarse_x = coarse_x[tuple(slice(0, s) for s in natural)]
-    up = prolong(coarse_x)
+    up = prolong(coarse_x, margin)
     return torch.where(fine_solvable, fine_x + up, fine_x)

@@ -1,4 +1,5 @@
-"""Halos of a one-card block mesh: CUDA kernels (csrc/halo.cu) and plain versions.
+"""Halos: a one-card block mesh's CUDA kernels (csrc/halo.cu) with their
+plain versions, and the rank-to-rank exchange of a `DistMesh`.
 
 Replaces ``parallel/halo.py::exchange_halos`` of the JAX package (ppermute
 of H-deep slabs along each sharded mesh axis, zeros at the mesh edges,
@@ -22,17 +23,29 @@ core extent and H are even (`geometry` refuses an odd split).
 global) run the kernel on CUDA tensors and count in `HALO_LAUNCHES`; on
 CPU tensors they run the plain versions, which copy block by block with
 slicing.
+
+Across ranks (`parallel.mesh.DistMesh`) a rank holds one block, and
+`exchange_halos` grows it by the halo of the level's `BlockGeometry` with
+its neighbours' slabs (`distributed.exchange`): x first, then y over the
+x-grown block, so the corners arrive transitively, and zeros at the mesh
+edges -- the one haloed block is the stacked layout with one block, and
+it equals that block of `halo_gather` on the global grid.  An x slab is
+contiguous; a y slab is strided and packed with a torch copy first (its
+seconds in `CommStats.pack_s`).  `core_of` cuts the core back out.
 """
 
 from __future__ import annotations
 
 from typing import NamedTuple
 
+import time
+
 import torch
 
 from geometricmultigridpressuresolver_tpu_torch.ops import _cuda
 from geometricmultigridpressuresolver_tpu_torch.ops.fused_cg import CoreWindow
-from geometricmultigridpressuresolver_tpu_torch.parallel.mesh import BlockMesh, grid_split
+from geometricmultigridpressuresolver_tpu_torch.parallel import distributed
+from geometricmultigridpressuresolver_tpu_torch.parallel.mesh import DistMesh, grid_split
 
 HALO_LAUNCHES = _cuda.LaunchCounter("halo")
 
@@ -66,21 +79,29 @@ class BlockGeometry(NamedTuple):
         return (self.num_blocks * (bx + 2 * hx), by + 2 * hy, self.shape[2])
 
     @property
+    def block_shape(self) -> tuple[int, int, int]:
+        """One haloed block (a rank's, across ranks)."""
+        (bx, by), (hx, hy) = self.core, self.halo
+        return (bx + 2 * hx, by + 2 * hy, self.shape[2])
+
+    @property
     def window(self) -> CoreWindow:
         (bx, by), (hx, hy) = self.core, self.halo
         return CoreWindow(bx + 2 * hx, hx, hx + bx, hy, hy + by)
 
 
-def geometry(mesh: BlockMesh, shape) -> BlockGeometry:
-    """The block geometry of a level of `shape` on `mesh` (`grid_split`'s
-    axes).  Raises on a split z axis (blocks are whole in z) and on an odd
-    core extent (the stacked red/black colour would flip)."""
+def geometry(mesh, shape, depth: int = H) -> BlockGeometry:
+    """The block geometry of a level of `shape` on `mesh` (a `BlockMesh` or
+    a `DistMesh`; `grid_split`'s axes) with `depth`-cell halos.  Raises on
+    a split z axis (blocks are whole in z) and on an odd core extent (the
+    stacked red/black colour would flip; across ranks, a rank's core offset
+    is a multiple of the core, so it stays even)."""
     shape = tuple(int(n) for n in shape)
     split = grid_split(mesh, shape)
     if split[2]:
         raise ValueError(f"the block mesh {mesh.shape} splits the z axis of {shape}; use (mx, my, 1)")
     blocks = tuple(m if s else 1 for m, s in zip(mesh.shape[:2], split[:2]))
-    halo = tuple(H if s else 0 for s in split[:2])
+    halo = tuple(depth if s else 0 for s in split[:2])
     geom = BlockGeometry(shape, blocks, halo)
     for n, s in zip(geom.core, split[:2]):
         if s and n % 2:
@@ -152,3 +173,54 @@ def core_scatter(t: torch.Tensor, geom: BlockGeometry, mode: str = "auto") -> to
     out = torch.empty(geom.shape, dtype=t.dtype, device=t.device)
     _launch("gmg_core_scatter", t, out, geom)
     return out
+
+
+def exchange_halo_axis(blk: torch.Tensor, h: int, axis: int, mesh: DistMesh) -> torch.Tensor:
+    """Grow this rank's `blk` by `h` cells of its neighbours' data on each
+    side along `axis` (mesh axis `axis`); a block at the mesh edge gets
+    zeros there.  Every rank of the mesh calls this together."""
+    n = blk.shape[axis]
+    if h > n:
+        raise ValueError(f"halo of {h} cells on a block of {n} along axis {axis}")
+    coords = list(mesh.coords)
+    c, m = coords[axis], mesh.shape[axis]
+    distributed.device_sync(blk.device)
+    t0 = time.perf_counter()
+    lo_slab = blk.narrow(axis, 0, h).contiguous()
+    hi_slab = blk.narrow(axis, n - h, h).contiguous()
+    distributed.device_sync(blk.device)
+    mesh.stats.pack_s += time.perf_counter() - t0
+    sends, recvs, received = [], [], {}
+    for side, step, slab in (("lo", -1, lo_slab), ("hi", 1, hi_slab)):
+        if 0 <= c + step < m:
+            peer = mesh.rank_at(coords[:axis] + [c + step] + coords[axis + 1:])
+            sends.append((slab, peer, axis))
+            recvs.append((slab, peer, axis))
+            received[side] = len(recvs) - 1
+    got = distributed.exchange(mesh, sends, recvs)
+    lo = got[received["lo"]] if "lo" in received else torch.zeros_like(lo_slab)
+    hi = got[received["hi"]] if "hi" in received else torch.zeros_like(hi_slab)
+    return torch.cat((lo, blk, hi), dim=axis)
+
+
+def exchange_halos(blk: torch.Tensor, geom: BlockGeometry, mesh: DistMesh) -> torch.Tensor:
+    """This rank's block grown to `geom.block_shape` (its halo on every
+    split axis, x before y so the corners fill transitively)."""
+    core = tuple(geom.core) + (geom.shape[2],)
+    if tuple(blk.shape) != core:
+        raise ValueError(f"a block of {tuple(blk.shape)}, the geometry's core is {core}")
+    distributed.device_sync(blk.device)
+    t0 = time.perf_counter()
+    for axis, h in enumerate(geom.halo):
+        if h:
+            blk = exchange_halo_axis(blk, h, axis, mesh)
+    distributed.device_sync(blk.device)
+    mesh.stats.exchanges += 1
+    mesh.stats.exchange_s += time.perf_counter() - t0
+    return blk
+
+
+def core_of(t: torch.Tensor, geom: BlockGeometry) -> torch.Tensor:
+    """The core of one haloed block (`geom.block_shape`)."""
+    (bx, by), (hx, hy) = geom.core, geom.halo
+    return t[hx:hx + bx, hy:hy + by].contiguous()

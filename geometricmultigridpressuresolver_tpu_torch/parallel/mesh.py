@@ -1,24 +1,35 @@
-"""The one-card block mesh (port of ``parallel/mesh.py``).
+"""Meshes of the decomposed solve (port of ``parallel/mesh.py``).
 
 The JAX package decomposes a level over a `jax.sharding.Mesh` of devices.
-The port's counterpart is a `BlockMesh`: the same (mx, my, mz) block
-decomposition, over ONE device.  Tensors stay global on that device;
-only the two block-mesh kernels (`parallel.fused_sharded`) cut a level
-into haloed blocks.  So a block mesh on one card is what the JAX tests'
-virtual 8-device CPU mesh is: the sharded schedule, with its halo
-redundancy, on one device -- not a speed-up.  A mesh over several cards
-(torch.distributed with NCCL) is not ported yet: `make_mesh` refuses
-devices on more than one card.
+The port has two counterparts, both the same (mx, my, mz) block
+decomposition in JAX's row-major device order:
 
-`constrain_grid` (a GSPMD sharding constraint) has no counterpart on one
-card: there is nothing to constrain, every tensor is whole on the device.
+  * `BlockMesh`: over ONE device.  Tensors stay global on that device;
+    only the two block-mesh kernels (`parallel.fused_sharded`) cut a level
+    into haloed blocks.  So a block mesh on one card is what the JAX tests'
+    virtual 8-device CPU mesh is: the sharded schedule, with its halo
+    redundancy, on one device -- not a speed-up.  `make_mesh` builds one
+    and refuses devices on more than one card.
+  * `DistMesh`: over PROCESSES (torch.distributed), one rank per device.
+    Each rank holds only its blocks of the levels the mesh splits and
+    exchanges halos and dot partials with the other ranks
+    (`parallel.distributed`, built by `distributed.initialize` /
+    `global_mesh`).
+
+`constrain_grid` (a GSPMD sharding constraint inside a traced setup
+program) has no counterpart: the port has no partitioner to steer.  On a
+`BlockMesh` every tensor is whole on its device; on a `DistMesh` every
+rank runs the whole setup and then keeps its blocks
+(`parallel.sharding.shard_setup`), so nothing is left to constrain.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
+from typing import Any
 
+import numpy as np
 import torch
 
 from geometricmultigridpressuresolver_tpu_torch import device as device_mod
@@ -58,29 +69,114 @@ def factor_mesh(n: int) -> tuple[int, int, int]:
     return tuple(sorted(shape, reverse=True))
 
 
+@dataclasses.dataclass
+class CommStats:
+    """What a rank's collectives cost since the last `reset`: halo
+    exchanges (calls of `halo.exchange_halos`) and their seconds, the
+    seconds spent packing the slabs (the strided y slabs' copies), the
+    bytes copied between the card and pinned host buffers for gloo, and the
+    ordered collectives (`distributed.ordered_sum`, `gather_blocks`, ...)
+    with their seconds.  Each timer is a host clock between two device
+    syncs, so it holds its own work and none of the kernels queued before
+    it (the syncs cost a host stall per call under NCCL; under gloo the
+    staging copies wait for the card anyway)."""
+
+    exchanges: int = 0
+    exchange_s: float = 0.0
+    pack_s: float = 0.0
+    bytes_staged: int = 0
+    collectives: int = 0
+    collective_s: float = 0.0
+
+    def reset(self) -> None:
+        for f in dataclasses.fields(self):
+            setattr(self, f.name, f.default)
+
+
+@dataclasses.dataclass(frozen=True)
+class DistMesh:
+    """An (mx, my, mz) mesh of torch.distributed ranks, this process being
+    `rank` (coordinates `coords`, JAX's row-major device order) on
+    `device`.  `backend` is the process group's ("nccl" or "gloo"); under
+    gloo, CUDA tensors are staged through pinned host buffers.  `stats`
+    counts this rank's communication."""
+
+    shape: tuple[int, int, int]
+    rank: int
+    device: torch.device
+    backend: str
+    group: Any = dataclasses.field(default=None, compare=False)
+    stats: CommStats = dataclasses.field(default_factory=CommStats, compare=False)
+
+    @property
+    def size(self) -> int:
+        return math.prod(self.shape)
+
+    @property
+    def coords(self) -> tuple[int, int, int]:
+        return tuple(int(c) for c in np.unravel_index(self.rank, self.shape))
+
+    def rank_at(self, coords) -> int:
+        """The rank at mesh coordinates `coords`."""
+        return int(np.ravel_multi_index(tuple(coords), self.shape))
+
+    def owns(self, split) -> bool:
+        """Whether this rank owns its block of a grid split on the axes
+        `split`: ranks whose blocks are equal (they differ only along mesh
+        axes the grid does not split) elect the lowest rank, the one at
+        coordinate 0 on every unsplit axis (JAX
+        `distributed.host_local_dofs`' owner election).  A whole grid is
+        owned by rank 0."""
+        return all(s or c == 0 for c, s in zip(self.coords, split))
+
+
 def make_mesh(n_blocks: int, device=None) -> BlockMesh:
     """A `factor_mesh(n_blocks)` block mesh on `device` (default: the card).
 
     `device` may be one device or a sequence of them; devices on more than
-    one card raise NotImplementedError (the multi-card mesh is not ported).
+    one card raise NotImplementedError: a process drives one device, and a
+    mesh over several is a `DistMesh` of processes
+    (`parallel.distributed.initialize`, then `distributed.global_mesh()`).
     """
     if isinstance(device, (list, tuple)):
         devices = {torch.device(d) for d in device}
         if len(devices) > 1:
             raise NotImplementedError(
-                "a block mesh over several devices is not ported yet: "
-                "the port's BlockMesh holds one device"
+                "a block mesh over several devices is not supported: the "
+                "BlockMesh holds one device; run one process per device and "
+                "use distributed.global_mesh() for a mesh of ranks"
             )
         device = next(iter(devices)) if devices else None
     return BlockMesh(factor_mesh(n_blocks), device_mod.resolve(device))
 
 
-def grid_split(mesh: BlockMesh, shape, min_per_device: int = 8) -> tuple[bool, bool, bool]:
-    """Which axes of a cell grid the mesh splits (``grid_pspec``'s rule):
-    an axis is split over its mesh axis unless it does not divide or its
-    blocks would drop below `min_per_device` cells (coarse levels are
-    cheaper whole than cut)."""
+def split_axes(mesh_shape, shape, min_per_device: int = 8) -> tuple[bool, bool, bool]:
+    """Which axes of a cell grid of `shape` a mesh of `mesh_shape` splits
+    (``grid_pspec``'s rule): an axis is split over its mesh axis unless it
+    does not divide or its blocks would drop below `min_per_device` cells
+    (coarse levels are cheaper whole than cut)."""
     return tuple(
         m > 1 and n % m == 0 and n // m >= min_per_device
-        for n, m in zip(shape, mesh.shape)
+        for n, m in zip(shape, mesh_shape)
     )
+
+
+def grid_split(mesh, shape, min_per_device: int = 8) -> tuple[bool, bool, bool]:
+    """`split_axes` of a `BlockMesh` or a `DistMesh` (the counterpart of
+    ``grid_pspec``)."""
+    return split_axes(mesh.shape, shape, min_per_device)
+
+
+def local_slices(mesh_shape, global_shape, rank: int, split=None) -> tuple[slice, slice, slice]:
+    """The global-index slices of rank `rank`'s block of a grid of
+    `global_shape` on a mesh of `mesh_shape`, split on the axes `split`
+    (default: `split_axes`' rule); a whole axis is sliced whole.  Pure, so
+    every rank's slices can be checked without starting a world."""
+    if split is None:
+        split = split_axes(mesh_shape, global_shape)
+    coords = np.unravel_index(rank, tuple(mesh_shape))
+    out = []
+    for n, m, c, s in zip(global_shape, mesh_shape, coords, split):
+        b = n // m
+        out.append(slice(int(c) * b, (int(c) + 1) * b) if s else slice(0, int(n)))
+    return tuple(out)

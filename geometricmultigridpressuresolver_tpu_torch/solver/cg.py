@@ -14,6 +14,13 @@ solve after that iteration with the current iterate and `converged` False
 (alpha, beta, rho) stays a 0-d device tensor; the fused CG step reads beta
 by pointer.  Capturing the loop in a CUDA graph would remove the sync and
 the launch gaps; that is later work.
+
+Across ranks (`solve_pcg_fused(ranks=)`, a `parallel.distributed.Ranks`)
+the vectors are a rank's blocks and every dot and norm is summed over the
+ranks in rank order, so ||r||^2 -- and with it the exit test -- is the
+same bits on every rank, and `interrupt_check` runs on rank 0 and its
+answer is broadcast: every rank leaves the loop after the same iteration,
+as the next collective requires.
 """
 
 from __future__ import annotations
@@ -38,9 +45,10 @@ class CGResult(NamedTuple):
 class _Loop:
     """Threshold, history and exit bookkeeping shared by both solvers."""
 
-    def __init__(self, b, solvable, tolerance, max_iterations, record):
+    def __init__(self, b, solvable, tolerance, max_iterations, record, ranks=None):
         dtype, device = b.dtype, b.device
-        self.b_norm2 = blas.squared_l2_norm(b, solvable)
+        self.ranks = ranks
+        self.b_norm2 = blas.squared_l2_norm(b, solvable, ranks)
         threshold = torch.tensor(tolerance, dtype=dtype, device=device) ** 2 * self.b_norm2
         self.b_norm2_h, self.threshold_h = torch.stack((self.b_norm2, threshold)).tolist()
         self.max_iterations = max_iterations
@@ -60,8 +68,15 @@ class _Loop:
             self.history[iteration] = rr
 
     def check_interrupt(self, interrupt_check, iteration: int) -> None:
-        if interrupt_check is not None:
+        """Across ranks every rank passes a check or none does; rank 0's
+        answer is every rank's."""
+        if interrupt_check is None:
+            return
+        if self.ranks is None:
             self.interrupted = bool(interrupt_check(iteration))
+        else:
+            mine = self.ranks.mesh.rank == 0 and bool(interrupt_check(iteration))
+            self.interrupted = self.ranks.broadcast(mine)
 
     def running(self, rr_h: float, iteration: int) -> bool:
         return rr_h > self.threshold_h and iteration < self.max_iterations
@@ -140,6 +155,7 @@ def solve_pcg_fused(
     preconditioner_dot: Callable[[torch.Tensor], tuple] | None = None,
     record_residuals: bool = False,
     interrupt_check: Callable[[int], bool] | None = None,
+    ranks=None,
 ) -> CGResult:
     """PCG with a fused search-direction / mat-vec / dot step.
 
@@ -149,21 +165,23 @@ def solve_pcg_fused(
     algebraically identical to `solve_pcg`.  `residual(x, b)` returns the
     masked b - A x (used for a warm start only).  `preconditioner_dot(r) ->
     (z, <r, z>)` optionally fuses the rho reduction into the preconditioner
-    (ignored under null-space projection, which projects z first).
+    (ignored under null-space projection, which projects z first).  With
+    `ranks` the vectors are a rank's blocks, and `step_p` and
+    `preconditioner_dot` return dots already summed over the ranks.
     """
     if project_null_space:
         preconditioner_dot = None
     if preconditioner_dot is None:
         def preconditioner_dot(r):
             z = apply_preconditioner(r)
-            return z, blas.dot(r, z, solvable)
+            return z, blas.dot(r, z, solvable, ranks)
     dtype = b.dtype
 
     def project(v):
-        return blas.project_null_space(v, solvable) if project_null_space else v
+        return blas.project_null_space(v, solvable, ranks) if project_null_space else v
 
     b = project(b)
-    loop = _Loop(b, solvable, tolerance, max_iterations, record_residuals)
+    loop = _Loop(b, solvable, tolerance, max_iterations, record_residuals, ranks)
     if x0 is None:
         x = torch.zeros_like(b)
         r = project(torch.where(solvable, b, torch.zeros_like(b)))  # b - A 0
@@ -175,7 +193,7 @@ def solve_pcg_fused(
     z, rho = preconditioner_dot(r)
     z = project(z)
     rho = rho.reshape(()).to(dtype)
-    rr = blas.squared_l2_norm(r, solvable)
+    rr = blas.squared_l2_norm(r, solvable, ranks)
     p, beta = z, torch.zeros_like(rho)
     loop.record(0, rr)
     it, rr_h = 0, rr.item()
@@ -185,7 +203,7 @@ def solve_pcg_fused(
         alpha = rho / torch.where(pap == 0, torch.ones_like(pap), pap)
         x = x + alpha * p
         r = project(torch.where(solvable, r - alpha * ap, r))
-        rr = blas.squared_l2_norm(r, solvable)
+        rr = blas.squared_l2_norm(r, solvable, ranks)
         z, rho_new = preconditioner_dot(r)
         z = project(z)
         rho_new = rho_new.reshape(()).to(dtype)
@@ -198,11 +216,11 @@ def solve_pcg_fused(
     return loop.result(x, rr, rr_h, it)
 
 
-def recomputed_residual_norms(residual, x, b, solvable):
+def recomputed_residual_norms(residual, x, b, solvable, ranks=None):
     """Recomputed (not recurrence-drifted) ||b - A x|| diagnostics:
     (relative l2, l-infinity) as 0-d tensors.  `residual(x, b)` returns
-    the masked b - A x."""
+    the masked b - A x; with `ranks`, of a rank's blocks, over all ranks."""
     r = residual(x, b)
-    b_norm = blas.l2_norm(b, solvable)
+    b_norm = blas.l2_norm(b, solvable, ranks)
     safe = torch.where(b_norm == 0, torch.ones_like(b_norm), b_norm)
-    return blas.l2_norm(r, solvable) / safe, blas.inf_norm(r, solvable)
+    return blas.l2_norm(r, solvable, ranks) / safe, blas.inf_norm(r, solvable, ranks)

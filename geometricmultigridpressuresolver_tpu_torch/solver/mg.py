@@ -13,8 +13,9 @@
     data (band-cell list, narrowed coefficients and active tiles, or a
     sharded level's stacked haloed coefficients and their tiles, with the
     active tiles of its own grid), built once per solve.
-  * level_flags: with a block mesh (`parallel.mesh.BlockMesh`), which
-    levels run the block-mesh smoother (`parallel.fused_sharded`).
+  * level_flags: with a block mesh (`parallel.mesh.BlockMesh`) or a mesh
+    of ranks (`parallel.mesh.DistMesh`), which levels run the block-mesh
+    smoother (`parallel.fused_sharded`).
   * coarse_system_device: the coarsest level's identity-padded dense
     inverse assembled and inverted on the level's device (JAX
     `_coarse_system_traced`), for the frozen-geometry frame loop
@@ -26,6 +27,21 @@ with `config.mg_field_dtype` every smoothed level stores its fields narrow.
 With a mesh, a level is "sharded" where the mesh splits it and
 `sharded_eligible` holds (JAX mg.py:666-726); sharded levels keep the mg
 dtype, the others narrow as before (JAX mg.py:807-812).
+
+Across ranks (a `DistMesh`) a "sharded" level holds the rank's blocks
+(`parallel.sharding.shard_problem`; the hierarchy's `shapes` keep the
+global shapes) and every other level is whole on every rank and runs the
+single-device chunk kernel as without a mesh.  JAX leaves a level that the
+mesh splits but the block kernels cannot take sharded under jnp and lets
+XLA insert the halos (JAX mg.py:706-726); the port gathers such a level
+whole instead -- the same arithmetic per cell.  Between two sharded levels
+the transfers read a one-cell halo (`halo.exchange_halos` at depth 1);
+from a sharded level to a whole one the restricted blocks are gathered
+into the whole coarse grid on every rank (`distributed.gather_blocks`);
+on the way up a rank prolongs from its slice of the whole coarse grid
+with a one-cell margin.  The sharded levels come first and share their
+split axes (checked).  Every decision comes from global shapes and the
+configuration, so every rank takes the same exchanges.
 
 `config.interior_smoother="chebyshev"` flags every level "plain": the
 smoothing block is `chebyshev_block` in plain PyTorch and the downstroke's
@@ -48,8 +64,8 @@ from geometricmultigridpressuresolver_tpu_torch.grids import is_solvable
 from geometricmultigridpressuresolver_tpu_torch.models import assembled
 from geometricmultigridpressuresolver_tpu_torch.ops import blas, fused_cg, fused_smoother, stencil, transfer
 from geometricmultigridpressuresolver_tpu_torch.ops import domain as domain_ops
-from geometricmultigridpressuresolver_tpu_torch.parallel import fused_sharded
-from geometricmultigridpressuresolver_tpu_torch.parallel.mesh import grid_split
+from geometricmultigridpressuresolver_tpu_torch.parallel import distributed, fused_sharded, halo
+from geometricmultigridpressuresolver_tpu_torch.parallel.mesh import DistMesh, grid_split, local_slices
 
 # Largest bucketed coarse system solved through an explicit dense inverse
 # (one matmul per cycle); bigger systems use a Cholesky factor.
@@ -62,13 +78,16 @@ class MGHierarchy(NamedTuple):
     The coarsest direct solver is a dense inverse (small systems) or a lower
     Cholesky factor (large ones); the unused one is a (0, 0) tensor.
     `coarse_dofs` maps bucket slots to flat cell indices of the coarsest
-    level; pad slots hold the out-of-range index ncell.
+    level; pad slots hold the out-of-range index ncell.  `shapes` are the
+    levels' global shapes when the levels hold a rank's blocks
+    (`parallel.sharding.shard_problem`), None when every level is whole.
     """
 
     levels: tuple[stencil.LevelCoeffs, ...]
     coarse_dofs: torch.Tensor  # int64 (nd_pad,)
     coarse_minv: torch.Tensor  # (nd_pad, nd_pad) or (0, 0)
     coarse_chol: torch.Tensor  # (nd_pad, nd_pad) or (0, 0)
+    shapes: tuple[tuple[int, int, int], ...] | None = None
 
     @property
     def num_levels(self) -> int:
@@ -307,9 +326,16 @@ def field_dtype(hier: MGHierarchy, config: SolverConfig) -> torch.dtype:
     return dtype
 
 
+def level_shapes(hier: MGHierarchy) -> tuple[tuple[int, int, int], ...]:
+    """The levels' global shapes (`hier.shapes`, else the levels' own; any
+    object with `levels` of some `shape` will do)."""
+    shapes = getattr(hier, "shapes", None)
+    return shapes if shapes is not None else tuple(tuple(c.shape) for c in hier.levels)
+
+
 def level_flags(hier: MGHierarchy, config: SolverConfig, mesh=None) -> tuple[str, ...]:
     """Per level, "sharded" (the block-mesh smoother) or "single" (the
-    single-device smoother on the global tensor): "sharded" where `mesh`
+    single-device smoother on the whole tensor): "sharded" where `mesh`
     splits the level and `sharded_eligible` holds (JAX mg.py:707-722).
     Without a mesh, or on a one-block mesh, every level is "single".  Under
     `config.interior_smoother="chebyshev"` every level is "plain" (the
@@ -320,11 +346,26 @@ def level_flags(hier: MGHierarchy, config: SolverConfig, mesh=None) -> tuple[str
         return ("single",) * hier.num_levels
     nlev = hier.num_levels
     flags = []
-    for level, c in enumerate(hier.levels):
-        split = grid_split(mesh, c.shape)
-        sharded = any(split) and fused_sharded.sharded_eligible(c.shape, split, mesh, level, nlev)
+    for level, shape in enumerate(level_shapes(hier)):
+        split = grid_split(mesh, shape)
+        sharded = any(split) and fused_sharded.sharded_eligible(shape, split, mesh, level, nlev)
         flags.append("sharded" if sharded else "single")
     return tuple(flags)
+
+
+def _check_rank_levels(shapes, flags, mesh) -> None:
+    """Across ranks the sharded levels must come first and share their
+    split axes, each core half the one above (the transfers' one-cell halos
+    and the gather of the last sharded level rely on it)."""
+    sharded = [lv for lv, f in enumerate(flags) if f == "sharded"]
+    if sharded != list(range(len(sharded))):
+        raise NotImplementedError(f"sharded levels {sharded} do not lead the hierarchy")
+    for lv in sharded[1:]:
+        fine, coarse = halo.geometry(mesh, shapes[lv - 1]), halo.geometry(mesh, shapes[lv])
+        if fine.blocks != coarse.blocks or any(f != 2 * c for f, c in zip(fine.core, coarse.core)):
+            raise NotImplementedError(
+                f"levels {lv - 1} and {lv} ({shapes[lv - 1]}, {shapes[lv]}) split differently on {mesh.shape}"
+            )
 
 
 def level_field_dtypes(hier: MGHierarchy, config: SolverConfig, flags) -> tuple[torch.dtype, ...]:
@@ -347,16 +388,20 @@ def hierarchy_block_lists(hier: MGHierarchy, config: SolverConfig, mesh=None):
     blocks) on sharded ones, None for the coarsest.  Either kind's `tiles`
     are the active tiles of the level's own grid; "plain" levels have none.
     A CG loop builds this once and passes it to every `v_cycle` (JAX
-    mg.py:729-768)."""
+    mg.py:729-768).  Across ranks a sharded level's entry holds the rank's
+    haloed block (its coefficients exchanged here once)."""
     flags = level_flags(hier, config, mesh)
     fdts = level_field_dtypes(hier, config, flags)
     smoothed = smoothed_levels(hier)
+    shapes = level_shapes(hier)
+    if isinstance(mesh, DistMesh):
+        _check_rank_levels(shapes, flags, mesh)
     out = []
     for level, c in enumerate(hier.levels):
         if level not in smoothed or flags[level] == "plain":
             out.append(None)
         elif flags[level] == "sharded":
-            out.append(fused_sharded.sharded_blocks(c, mesh, config.kernel_mode))
+            out.append(fused_sharded.sharded_blocks(c, mesh, config.kernel_mode, shapes[level]))
         else:
             out.append(fused_smoother.level_blocks(c, config, fdts[level]))
     return tuple(out)
@@ -399,7 +444,9 @@ def v_cycle(
     `field_dtype` (the transfers run in torch on those fields); sharded
     levels (with a block `mesh`, `level_flags`), the coarse solve and the
     returned x are in the hierarchy's dtype.  `block_lists` must come from
-    `hierarchy_block_lists` with the same mesh.
+    `hierarchy_block_lists` with the same mesh.  Across ranks (a
+    `DistMesh`) x and b are the rank's blocks of the finest level when it
+    is sharded, and the fine dot is summed over the ranks.
     """
     if config is None:
         config = SolverConfig()
@@ -407,6 +454,8 @@ def v_cycle(
     nlev = hier.num_levels
     flags = level_flags(hier, config, mesh)
     vdt = level_field_dtypes(hier, config, flags)
+    ranks = isinstance(mesh, DistMesh)
+    shapes = level_shapes(hier)
 
     b = b.to(vdt[0])
     if use_initial_guess:
@@ -421,14 +470,52 @@ def v_cycle(
         if flags[level] == "sharded":
             sb = block_lists[level]
             return fused_sharded.smooth_level_sharded(
-                xl, rhs_l, c, config, forward, mesh, prehaloed=sb.prehaloed, blocks=sb.blocks, **kw
+                xl, rhs_l, c, config, forward, mesh, prehaloed=sb.prehaloed, blocks=sb.blocks,
+                shape=shapes[level], **kw
             )
         return fused_smoother.smooth_level(xl, rhs_l, c, config, forward, blocks=block_lists[level], **kw)
+
+    def split(level):
+        return grid_split(mesh, shapes[level]) if flags[level] == "sharded" else (False,) * 3
+
+    def restrict(level, r):
+        # Across ranks a sharded level restricts its block grown by a
+        # one-cell halo, and a whole coarse level gathers the blocks.
+        coarse = hier.levels[level + 1].solvable
+        if not (ranks and flags[level] == "sharded"):
+            return transfer.restrict(r, coarse)
+        g1 = halo.geometry(mesh, shapes[level], depth=1)
+        out = transfer.restrict_natural(halo.exchange_halos(r, g1, mesh), g1.halo + (0,))
+        if flags[level + 1] != "sharded":
+            natural = tuple(n // 2 for n in shapes[level])
+            out = distributed.gather_blocks(out, mesh, natural, split(level))
+        return transfer.fit_coarse(out, coarse)
+
+    def prolong_add(level, xl, coarse_x):
+        # Across ranks a sharded level prolongs from the coarse cells under
+        # its block with a one-cell margin: a halo of a sharded coarse
+        # level, or a slice of a whole one (zeros past its edge).
+        c = hier.levels[level]
+        if not (ranks and flags[level] == "sharded"):
+            return transfer.prolong_add(xl, coarse_x, c.solvable)
+        margin = halo.geometry(mesh, shapes[level], depth=1).halo + (0,)
+        if flags[level + 1] == "sharded":
+            coarse_x = halo.exchange_halos(coarse_x, halo.geometry(mesh, shapes[level + 1], depth=1), mesh)
+        else:
+            own = local_slices(mesh.shape, shapes[level], mesh.rank, split(level))
+            padded = torch.nn.functional.pad(coarse_x, (0, 0, margin[1], margin[1], margin[0], margin[0]))
+            coarse_x = padded[tuple(
+                slice(s.start // 2, s.stop // 2 + 2 * m) if m else slice(None) for s, m in zip(own, margin)
+            )]
+        return transfer.prolong_add(xl, coarse_x, c.solvable, margin)
 
     def finish(out):
         # The caller gets the hierarchy dtype whatever the field storage.
         if emit_fine_dot:
-            return out[0].to(dtype), out[1]
+            rho = out[1]
+            if ranks and flags[0] != "sharded":
+                rho = distributed.ordered_sum(mesh, rho, mesh.owns(split(0)))
+            return out[0].to(dtype), rho
         return out.to(dtype)
 
     if nlev == 1:
@@ -453,6 +540,12 @@ def v_cycle(
             xl = smooth(level, None if x_zero else x, rhs[level], True, x_is_zero=x_zero)
             if flags[level] == "plain":
                 r = stencil.residual(xl, rhs[level], c)
+            elif ranks and flags[level] == "sharded":
+                sb = block_lists[level]
+                r = fused_sharded.residual_sharded(
+                    xl, rhs[level], (sb.prehaloed.diag, sb.prehaloed.ew0, sb.prehaloed.ew1, sb.prehaloed.ew2),
+                    sb.tiles, mesh, shapes[level], config.kernel_mode,
+                )
             else:
                 # In the hierarchy's dtype, as the JAX package forms it here.
                 r = fused_cg.residual(
@@ -460,13 +553,12 @@ def v_cycle(
                     mode=config.kernel_mode, tiles=block_lists[level].tiles,
                 )
         sols[level] = xl
-        rhs[level + 1] = transfer.restrict(r, hier.levels[level + 1].solvable).to(vdt[level + 1])
+        rhs[level + 1] = restrict(level, r).to(vdt[level + 1])
 
     sols[nlev - 1] = coarse_solve(hier, rhs[nlev - 1])
 
     # Upstroke with adjoint smoother ordering.
     for level in range(nlev - 2, -1, -1):
-        c = hier.levels[level]
-        xl = transfer.prolong_add(sols[level], sols[level + 1].to(vdt[level]), c.solvable)
+        xl = prolong_add(level, sols[level], sols[level + 1].to(vdt[level]))
         sols[level] = smooth(level, xl, rhs[level], False, emit_dot=emit_fine_dot and level == 0)
     return finish(sols[0])

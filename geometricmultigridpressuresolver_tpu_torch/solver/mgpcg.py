@@ -13,6 +13,14 @@ level is one of them the CG step is `parallel.fused_sharded.cg_step_sharded`
 callback to the CG loop (`solver.cg`), checked once per iteration.
 `solve_stages` builds the loop's operators once per solve; the stage
 profiler (`utils.profiling.instrumented_solve`) runs the same ones.
+
+Across ranks (`mesh=` a `parallel.mesh.DistMesh`, JAX mgpcg.py:94-113's
+sharded build) `build_problem` builds the whole problem on every rank and
+keeps the rank's blocks (`parallel.sharding.shard_problem`); `solve` takes
+the right-hand side and the start as the whole fine grid or as the rank's
+block of it and returns the rank's block of x.  The CG step and the
+recomputed residual then run on the rank's haloed fine block, and every
+dot and norm is summed over the ranks in rank order (`solver.cg`).
 """
 
 from __future__ import annotations
@@ -24,7 +32,8 @@ import torch
 from geometricmultigridpressuresolver_tpu_torch import device as device_mod
 from geometricmultigridpressuresolver_tpu_torch.config import SolverConfig
 from geometricmultigridpressuresolver_tpu_torch.ops import fused_cg, fused_smoother, stencil
-from geometricmultigridpressuresolver_tpu_torch.parallel import fused_sharded
+from geometricmultigridpressuresolver_tpu_torch.parallel import distributed, fused_sharded, sharding
+from geometricmultigridpressuresolver_tpu_torch.parallel.mesh import DistMesh
 from geometricmultigridpressuresolver_tpu_torch.solver import cg as cg_mod
 from geometricmultigridpressuresolver_tpu_torch.solver import mg as mg_mod
 
@@ -55,16 +64,20 @@ def build_problem(
     config: SolverConfig | None = None,
     validate: bool = False,
     device=None,
+    mesh=None,
 ) -> PoissonProblem:
     """Problem from expanded and relabeled labels (+ finest weights), built
-    on `device` (default: the labels' device if they are a tensor, else the
-    card)."""
+    on `device` (default: the mesh's device, else the labels' device if
+    they are a tensor, else the card).  With a `DistMesh`, every rank
+    builds the whole problem and keeps its blocks (`shard_problem`)."""
     if config is None:
         config = SolverConfig()
     dtype, fine_dtype, fine_full = fine_plan(config)
     target_levels = mg_levels
     if config.max_mg_levels is not None:
         target_levels = min(target_levels, config.max_mg_levels)
+    if mesh is not None and device is None:
+        device = mesh.device
     dev = device_mod.of(labels, device)
     lab = torch.as_tensor(labels, device=dev).to(torch.int8)
     fw = None if face_weights is None else tuple(
@@ -75,7 +88,10 @@ def build_problem(
         fine_dtype, fine_full,
     )
     hier = mg_mod._finish_hierarchy(levels, flags, label_levels, config, validate=validate, host_fw=fw)
-    return _finish_problem(hier, fine, fine_full)
+    problem = _finish_problem(hier, fine, fine_full)
+    if isinstance(mesh, DistMesh):
+        problem = sharding.shard_problem(problem, mesh, config)
+    return problem
 
 
 def _finish_problem(hier: mg_mod.MGHierarchy, fine, fine_full: bool) -> PoissonProblem:
@@ -100,11 +116,61 @@ def fine_tiles(problem: PoissonProblem, block_lists=None) -> fused_smoother.Tile
     return fused_smoother.level_tiles(fine.solvable, fused_smoother.band_cells(fine.band))
 
 
-def fine_residual(problem: PoissonProblem, config: SolverConfig, tiles=None):
+class FineLayout(NamedTuple):
+    """How the finest level lies across the ranks of a `DistMesh`: its
+    global shape, whether the solve runs it sharded, the axes its blocks
+    are cut on, and the reductions over it (`distributed.Ranks`)."""
+
+    shape: tuple[int, int, int]
+    sharded: bool
+    split: tuple[bool, bool, bool]
+    ranks: distributed.Ranks
+
+
+def fine_layout(problem: PoissonProblem, config: SolverConfig, mesh: DistMesh) -> FineLayout:
+    """The `FineLayout` of a problem holding a rank's blocks."""
+    if problem.hier.shapes is None:
+        raise ValueError("the problem holds no rank's blocks: shard it first (sharding.shard_problem)")
+    shape = problem.hier.shapes[0]
+    sharded = mg_mod.level_flags(problem.hier, config, mesh)[0] == "sharded"
+    split = sharding.level_split(mesh, shape, sharded)
+    return FineLayout(shape, sharded, split, distributed.Ranks(mesh, mesh.owns(split)))
+
+
+def fine_block(t: torch.Tensor, problem: PoissonProblem, layout: FineLayout) -> torch.Tensor:
+    """`t` as this rank's block of the finest level: a whole fine grid is
+    cut, a block of the right shape passes."""
+    mesh = layout.ranks.mesh
+    if tuple(t.shape) == tuple(layout.shape):
+        return sharding.block_of(t, mesh, layout.split)
+    if tuple(t.shape) == tuple(problem.fine.shape):
+        return t
+    raise ValueError(
+        f"a field of shape {tuple(t.shape)}: neither the fine grid {layout.shape} nor this "
+        f"rank's block {problem.fine.shape} of it"
+    )
+
+
+def fine_residual(problem: PoissonProblem, config: SolverConfig, tiles=None, mesh=None, prehaloed=None):
     """`residual(x, b)`: the masked b - A x of the finest CG operator, through
     the residual kernel on CUDA tensors over `tiles` (`fine_tiles`, built
-    here when None)."""
+    here when None).  Across ranks, on a sharded fine level, x and b are
+    the rank's blocks and the kernel runs on its haloed block: `prehaloed`
+    is the operator's (`prehalo_cg_coeffs`, `stacked_cg_tiles`) pair, its
+    halos exchanged here when None."""
     fine = problem.fine
+    if isinstance(mesh, DistMesh) and fine_layout(problem, config, mesh).sharded:
+        shape = problem.hier.shapes[0]
+        if prehaloed is None:
+            fine_halo = fused_sharded.prehalo_cg_coeffs(fine, mesh, config.kernel_mode, shape)
+            prehaloed = (fine_halo, fused_sharded.stacked_cg_tiles(fine_halo))
+        fine_halo, halo_tiles = prehaloed
+
+        def residual(x, b):
+            r = fused_sharded.residual_sharded(x, b, fine_halo, halo_tiles, mesh, shape, config.kernel_mode)
+            return torch.where(fine.solvable, r, torch.zeros_like(r))
+
+        return residual
     if tiles is None:
         tiles = fine_tiles(problem)
 
@@ -124,6 +190,7 @@ class SolveStages(NamedTuple):
     residual: Callable          # (x, b) -> masked b - A x
     preconditioner: Callable    # r -> z
     preconditioner_dot: Callable | None  # r -> (z, <r, z>); None without a V-cycle
+    ranks: distributed.Ranks | None = None  # the CG loop's reductions across ranks
 
 
 def solve_stages(problem: PoissonProblem, config: SolverConfig, mesh=None) -> SolveStages:
@@ -131,10 +198,13 @@ def solve_stages(problem: PoissonProblem, config: SolverConfig, mesh=None) -> So
     once: the fused CG step, the warm start's residual, and the V-cycle (or
     inverse-diagonal) preconditioner, with and without the fine rho dot.
     `solve` and `utils.profiling.instrumented_solve` both run these, so the
-    two launch the same kernels in the same order."""
+    two launch the same kernels in the same order.  Across ranks their
+    dots are totals over the ranks, and `ranks` sums the loop's own."""
     fine = problem.fine
     sd = config.solve_dtype
     mg_dtype = config.mg_dtype_resolved
+    layout = fine_layout(problem, config, mesh) if isinstance(mesh, DistMesh) else None
+    shape0 = mg_mod.level_shapes(problem.hier)[0]
 
     # Band-cell lists, narrowed coefficients, active tiles and sharded
     # levels' stacked coefficients: once per solve.
@@ -143,21 +213,25 @@ def solve_stages(problem: PoissonProblem, config: SolverConfig, mesh=None) -> So
         blocks = mg_mod.hierarchy_block_lists(problem.hier, config, mesh)
     tiles = fine_tiles(problem, blocks)
 
+    prehaloed = None
     if mg_mod.level_flags(problem.hier, config, mesh)[0] == "sharded":
         # The operator's stacked haloed blocks and their tiles: once per solve.
-        fine_halo = fused_sharded.prehalo_cg_coeffs(fine, mesh, config.kernel_mode)
+        fine_halo = fused_sharded.prehalo_cg_coeffs(fine, mesh, config.kernel_mode, shape0)
         halo_tiles = fused_sharded.stacked_cg_tiles(fine_halo)
+        prehaloed = (fine_halo, halo_tiles)
 
         def step_p(z, p, beta):
             return fused_sharded.cg_step_sharded(
-                z, p, beta, fine, config, mesh, prehaloed_cg=fine_halo, tiles=halo_tiles
+                z, p, beta, fine, config, mesh, prehaloed_cg=fine_halo, tiles=halo_tiles, shape=shape0
             )
     else:
         def step_p(z, p, beta):
-            return fused_cg.search_matvec_dot(
+            pn, ap, dot = fused_cg.search_matvec_dot(
                 z, p, beta, fine.diag, fine.ew0, fine.ew1, fine.ew2, mode=config.kernel_mode,
                 tiles=tiles,
             )
+            # A whole fine level across ranks: rank 0's dot on every rank.
+            return pn, ap, dot if layout is None else layout.ranks.sum(dot)
 
     preconditioner_dot = None
     if config.use_mg_preconditioner:
@@ -176,7 +250,10 @@ def solve_stages(problem: PoissonProblem, config: SolverConfig, mesh=None) -> So
         def preconditioner(r):
             return fine.inv_diag * r
 
-    return SolveStages(step_p, fine_residual(problem, config, tiles), preconditioner, preconditioner_dot)
+    residual = fine_residual(problem, config, tiles, mesh, prehaloed)
+    return SolveStages(
+        step_p, residual, preconditioner, preconditioner_dot, None if layout is None else layout.ranks
+    )
 
 
 def solve(
@@ -192,12 +269,42 @@ def solve(
     `BlockMesh` on that device) runs the sharded levels block by block.
     `interrupt_check(iteration) -> bool`, evaluated on the host after each
     CG iteration, stops the solve early when it returns True (JAX
-    mgpcg.solve's cooperative interruption)."""
+    mgpcg.solve's cooperative interruption).
+
+    With a `DistMesh` every rank of the mesh calls this together with its
+    share of the problem (`build_problem(mesh=)`); `rhs` and `x0` are the
+    whole fine grid or this rank's block of it; the result's x is the
+    rank's block (`distributed.gather_blocks` assembles the grid).  Every
+    rank passes an `interrupt_check` or none does; rank 0's answer counts."""
     if config is None:
         config = SolverConfig()
+    rhs, x0 = solve_inputs(problem, rhs, x0, config, mesh)
+    return run_stages(solve_stages(problem, config, mesh), problem, rhs, x0, config, interrupt_check)
+
+
+def solve_inputs(problem: PoissonProblem, rhs: torch.Tensor, x0, config: SolverConfig, mesh=None):
+    """`solve`'s (rhs, x0), checked against the mesh's device and, across
+    ranks, cut to this rank's block of the fine grid."""
     if mesh is not None:
         fused_sharded.check_device(mesh, rhs)
-    stages = solve_stages(problem, config, mesh)
+    if isinstance(mesh, DistMesh):
+        layout = fine_layout(problem, config, mesh)
+        rhs = fine_block(rhs, problem, layout)
+        x0 = None if x0 is None else fine_block(x0, problem, layout)
+    return rhs, x0
+
+
+def run_stages(
+    stages: SolveStages,
+    problem: PoissonProblem,
+    rhs: torch.Tensor,
+    x0: torch.Tensor | None,
+    config: SolverConfig,
+    interrupt_check=None,
+) -> cg_mod.CGResult:
+    """The CG loop of `solve` on operators built by `solve_stages`, for
+    inputs from `solve_inputs` (a caller that reuses the operators, as
+    `free_surface.project` does for its recomputed residual)."""
     return cg_mod.solve_pcg_fused(
         stages.step_p,
         stages.residual,
@@ -211,4 +318,5 @@ def solve(
         preconditioner_dot=stages.preconditioner_dot,
         record_residuals=config.record_residuals,
         interrupt_check=interrupt_check,
+        ranks=stages.ranks,
     )

@@ -774,3 +774,29 @@ def test_instrumented_solve_bit_equal_on_the_card(device, dtype):
     assert times.calls["matvec"] == result.iterations > 0
     stages = profiling.vcycle_stage_times(setup.problem.hier, rhs, cfg, warmup=1, reps=2)
     assert f"L{setup.problem.hier.num_levels - 1} coarse direct solve" in stages.seconds
+
+
+def test_two_ranks_on_the_card_kernel_vs_plain(device):
+    """Two ranks ((2, 1, 1), gloo with host staging, both on this card) solve
+    the 32^3 sine fixture in fp64 with L0 sharded: the rank-side block functions
+    launch the kernels, and x and the iterations equal the same world's
+    plain run (kernel_mode="torch") to 1e-12."""
+    from geometricmultigridpressuresolver_tpu_torch.parallel import dryrun
+
+    labels, weights, mg_levels = _sine_domain()
+    labels, weights = labels.numpy(), [w.numpy() for w in weights]
+    rhs = np.random.default_rng(21).standard_normal(labels.shape)
+    rhs[labels < 2] = 0.0
+    job = "geometricmultigridpressuresolver_tpu_torch.parallel.dryrun:solve_job"
+    runs = {
+        mode: dryrun.launch(job, 2, "gloo", "cuda", dict(
+            labels=labels, weights=weights, mg_levels=mg_levels, rhs=rhs,
+            config_kwargs=dict(tolerance=1e-8, kernel_mode=mode)), timeout=300)
+        for mode in ("auto", "torch")
+    }
+    for kernel, plain in zip(runs["auto"], runs["torch"]):
+        assert kernel["flags"][0] == "sharded" and kernel["converged"]
+        assert kernel["launches"]["smoother_sharded"] > 0 and kernel["launches"]["cg_step_sharded"] > 0
+        assert sum(plain["launches"].values()) == 0
+        assert kernel["iterations"] == plain["iterations"]
+        np.testing.assert_allclose(kernel["x"], plain["x"], rtol=0, atol=1e-12)
