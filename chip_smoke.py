@@ -81,16 +81,26 @@ Phases (any failure exits non-zero and prints no result line):
      rehearsal of the multi-card path: [11a] NCCL, a world of one rank,
      the 64^3 splash in the bench configuration against a single-process
      projection of the same scene; [11b] four ranks on a (2, 2, 1) mesh,
-     gloo with the CUDA tensors staged through pinned host memory, the
-     bench projection built with build_setup(mesh=), each rank checking its
-     launch and halo-exchange counts against the plan, its chunk-kernel
-     blocks and CG step on its haloed blocks against their plain versions,
-     and timing the best of 3 solves with each one's exchanges, staged
-     bytes, exchange and compute milliseconds; the pressure against phases
-     3 and 8 and the local DOFs against the total; [11c] two ranks on
-     (2, 1, 1), fp64, the 32^3 fractional sine fixture from a warm start
-     against the single process; [11d] the dryrun launcher's command line
-     in a process of its own.
+     gloo with the CUDA tensors staged through pinned host memory: each
+     rank makes the scene, keeps its base blocks and frees the rest, then
+     runs the partitioned build_setup(mesh=) and project(mesh=), checking
+     every field of its setup against phase 3's setup cut to its blocks
+     (sha256 of the bytes), its launch and halo-exchange counts against
+     the plan, its chunk-kernel blocks and CG step on its haloed blocks
+     against their plain versions, printing the peak device memory of the
+     build (at most half of phase 3's) and of the projection apart, and
+     timing the best of 3 solves with each one's exchanges, staged bytes,
+     exchange and compute milliseconds; the gathered pressure against
+     phases 3 and 8 and the local DOFs against the total; [11c] two ranks
+     on (2, 1, 1), fp64, the 32^3 fractional sine fixture from a warm
+     start against the single process; [11d] the dryrun launcher's command
+     line in a process of its own; [11e] the bench splash at twice the
+     size (512^3): one single-process build and projection (its peak
+     memory, DOFs, iterations), then four gloo ranks through the
+     partitioned build and one projection each (setup and project seconds,
+     peak memory, exchanges, box moves, staged bytes per rank), held to
+     1e-5, the single process's iterations +-1, its pressure within 1e-3
+     and its DOF count.
 Every kernel's entry in the kernels JSON has its launches on its path (and
 on phase 10's blocks, `launches_test_node`, and per rank of [11b],
 `launches_distributed`), its
@@ -320,21 +330,116 @@ def solvable_field(labels, seed: int):
     return x
 
 
-def rank_bench(mesh, n: int, reps: int = 3) -> dict:
-    """Phase [11b], one rank of the mesh: the n^3 bench projection built with
-    `build_setup(mesh=)`, with launch and exchange counts exact against the
-    plan for this rank's mesh; this rank's chunk-kernel blocks and CG step
-    on its haloed blocks against their plain versions (the same functions
-    with kernel_mode="torch"); the best of `reps` solves with each one's
-    exchanges, staged bytes, exchange and compute milliseconds; peak device
-    memory.  Rank 0 returns the pressure."""
+def tensor_digests(tree) -> dict:
+    """sha256 of the bytes of every tensor in a (nested) tuple of tensors,
+    by path (a rank's blocks are compared by these, not shipped)."""
+    import hashlib
+
+    import torch
+
+    from geometricmultigridpressuresolver_tpu_torch.parallel import dryrun
+
+    return {
+        path: hashlib.sha256(t.detach().contiguous().reshape(-1).view(torch.uint8).cpu().numpy().tobytes()).hexdigest()
+        for path, t in dryrun.named_tensors(tree)
+    }
+
+
+def scene_blocks(mesh, n: int):
+    """This rank's blocks of the n^3 bench splash (liquid SDF, cut-cell
+    weights, velocity): the scene is made whole on the rank's device, cut
+    (`make_global_grid` / `make_global_faces`) and freed, and the peak
+    counter reset, so what a rank holds from here on is its blocks."""
+    import torch
+
+    from geometricmultigridpressuresolver_tpu_torch.models import sdf
+    from geometricmultigridpressuresolver_tpu_torch.parallel import distributed
+    from geometricmultigridpressuresolver_tpu_torch.parallel.mesh import grid_split
+
+    dev, base = mesh.device, (n, n, n)
+    phi, velocity = sdf.splash_scene(base, device=dev, dtype=torch.float32)
+    weights = sdf.open_box_weights(base, device=dev, dtype=torch.float32)
+    blocks = (distributed.make_global_grid(base, phi, mesh, grid_split(mesh, base)),
+              distributed.make_global_faces(base, weights, mesh), distributed.make_global_faces(base, velocity, mesh))
+    del phi, velocity, weights
+    torch.cuda.synchronize(dev)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    return blocks
+
+
+def partitioned_run(mesh, n: int):
+    """Build (`build_setup(mesh=)`) and project (`project(mesh=)`) the n^3
+    bench splash from this rank's blocks: (setup, result, numbers: the
+    seconds and the peak device memory of each apart, the projection's
+    exchanges, box moves and staged bytes), the launch counters reset just
+    before the projection."""
     import dataclasses
 
     import torch
 
-    from geometricmultigridpressuresolver_tpu_torch.models import free_surface, sdf
+    from geometricmultigridpressuresolver_tpu_torch.models import free_surface
     from geometricmultigridpressuresolver_tpu_torch.ops import fused_cg, fused_smoother
-    from geometricmultigridpressuresolver_tpu_torch.parallel import distributed, dryrun, fused_sharded, halo
+    from geometricmultigridpressuresolver_tpu_torch.parallel import dryrun, halo
+
+    dev, config = mesh.device, dryrun.bench_config()
+    phi, weights, velocity = scene_blocks(mesh, n)
+    t0 = time.perf_counter()
+    setup = free_surface.build_setup(phi, weights, config=config, mesh=mesh, base_shape=(n, n, n))
+    torch.cuda.synchronize(dev)
+    numbers = dict(setup_s=time.perf_counter() - t0, build_peak_gib=torch.cuda.max_memory_allocated(dev) / 2**30)
+    for c in (fused_smoother.PASS_LAUNCHES, fused_smoother.NARROW_LAUNCHES, fused_cg.STEP_LAUNCHES,
+              fused_cg.RESIDUAL_LAUNCHES, fused_smoother.SHARDED_LAUNCHES, fused_cg.SHARDED_STEP_LAUNCHES,
+              halo.HALO_LAUNCHES):
+        c.reset()
+    mesh.stats.reset()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    result = free_surface.project(setup, velocity, config=config, mesh=mesh)
+    torch.cuda.synchronize(dev)
+    numbers.update(project_s=time.perf_counter() - t0, project_peak_gib=torch.cuda.max_memory_allocated(dev) / 2**30,
+                   project_stats=dataclasses.asdict(mesh.stats))
+    return setup, result, velocity, numbers
+
+
+def gathered_pressure(result, mesh, n: int):
+    """The whole pressure from every rank's block (every rank calls)."""
+    from geometricmultigridpressuresolver_tpu_torch.parallel import distributed
+    from geometricmultigridpressuresolver_tpu_torch.parallel.mesh import grid_split
+
+    return distributed.gather_blocks(result.pressure, mesh, (n, n, n), grid_split(mesh, (n, n, n)))
+
+
+def rank_project(mesh, n: int) -> dict:
+    """Phase [11e], one rank of the mesh: the n^3 bench splash through the
+    partitioned build and one projection; rank 0 returns the gathered
+    pressure."""
+    from geometricmultigridpressuresolver_tpu_torch.parallel import distributed
+
+    setup, result, _, numbers = partitioned_run(mesh, n)
+    pressure = gathered_pressure(result, mesh, n)
+    return dict(
+        numbers, rank=mesh.rank, iterations=result.cg.iterations, converged=result.cg.converged,
+        relative_residual=result.cg.relative_residual,
+        local_dofs=distributed.host_local_dofs(setup.problem.fine.solvable, mesh, setup.expanded_shape),
+        block_shapes=[list(c.shape) for c in setup.problem.hier.levels],
+        pressure=pressure.cpu() if mesh.rank == 0 else None,
+    )
+
+
+def rank_bench(mesh, n: int, reps: int = 3) -> dict:
+    """Phase [11b], one rank of the mesh: the n^3 bench projection through
+    the partitioned build (`partitioned_run`), with launch and exchange
+    counts exact against the plan for this rank's mesh; the digests of
+    its blocks of the setup; this rank's chunk-kernel blocks and CG step on
+    its haloed blocks against their plain versions (the same functions
+    with kernel_mode="torch"); the best of `reps` solves with each one's
+    exchanges, staged bytes, exchange and compute milliseconds.  Rank 0
+    returns the gathered pressure."""
+    import torch
+
+    from geometricmultigridpressuresolver_tpu_torch.ops import fused_cg, fused_smoother
+    from geometricmultigridpressuresolver_tpu_torch.parallel import distributed, dryrun, fused_sharded, halo, sharding
     from geometricmultigridpressuresolver_tpu_torch.solver import mg, mgpcg
 
     dev = mesh.device
@@ -344,24 +449,9 @@ def rank_bench(mesh, n: int, reps: int = 3) -> dict:
         halo.HALO_LAUNCHES,
     )
     config = dryrun.bench_config()
-    torch.cuda.reset_peak_memory_stats(dev)
-    phi, velocity = sdf.splash_scene((n, n, n), device=dev, dtype=torch.float32)
-    weights = sdf.open_box_weights((n, n, n), device=dev, dtype=torch.float32)
-    torch.cuda.synchronize(dev)
-    t0 = time.perf_counter()
-    setup = free_surface.build_setup(phi, weights, config=config, mesh=mesh)
-    torch.cuda.synchronize(dev)
-    t_setup = time.perf_counter() - t0
-    for c in counters:
-        c.reset()
-    mesh.stats.reset()
-    t0 = time.perf_counter()
-    result = free_surface.project(setup, velocity, config=config, mesh=mesh)
-    torch.cuda.synchronize(dev)
-    t_project = time.perf_counter() - t0
+    setup, result, velocity, numbers = partitioned_run(mesh, n)
     launches = {c.name: c.count for c in counters}
-    exchanges = mesh.stats.exchanges
-    project_stats = dataclasses.asdict(mesh.stats)
+    exchanges = numbers["project_stats"]["exchanges"]
     hier = setup.problem.hier
     iters = result.cg.iterations
     expected = expected_launches(hier, config, iters, mesh=mesh)
@@ -371,6 +461,7 @@ def rank_bench(mesh, n: int, reps: int = 3) -> dict:
     flags = mg.level_flags(hier, config, mesh)
     require(launches["smoother_sharded"] > 0 and launches["cg_step_sharded"] > 0,
             f"rank {mesh.rank}: the rank-side block functions never ran")
+    digests = tensor_digests(setup)
 
     # This rank's kernels against their plain versions on its haloed blocks.
     gen = torch.Generator(device=dev).manual_seed(20261017 + mesh.rank)
@@ -415,10 +506,7 @@ def rank_bench(mesh, n: int, reps: int = 3) -> dict:
         check("cg_step_sharded", what, g, w, 1e-5 if g.dim() else 1e-4)
 
     # The best of `reps` solves, each with its exchange counts and times.
-    rhs = free_surface.embed_window(
-        free_surface.negative_divergence(setup.liquid_mask, velocity, setup.weights),
-        setup.window_start, setup.base_pads, setup.expanded_shape,
-    )
+    rhs = sharding.window_rhs(setup, velocity, None, config, mesh)
     solves = []
     for _ in range(reps):
         mesh.stats.reset()
@@ -435,19 +523,17 @@ def rank_bench(mesh, n: int, reps: int = 3) -> dict:
         ))
         require(st.exchanges == expected_exchanges(hier, config, res.iterations, mesh, project=False),
                 f"rank {mesh.rank}: solve exchanges differ from the plan")
-    pressure = result.pressure
-    return {
-        "rank": mesh.rank, "coords": list(mesh.coords), "flags": list(flags), "iterations": iters,
-        "converged": result.cg.converged, "relative_residual": result.cg.relative_residual,
-        "recomputed_residual": float(result.residual_rel_l2),
-        "local_dofs": distributed.host_local_dofs(fine.solvable, mesh, shape0),
-        "block_shapes": [list(c.shape) for c in hier.levels], "launches": launches, "exchanges": exchanges,
-        "project_stats": project_stats,
-        "setup_s": t_setup, "project_s": t_project, "errs": errs, "solves": solves,
-        "peak_gib": torch.cuda.max_memory_allocated(dev) / 2**30,
-        "pressure_digest": [float(pressure.double().sum()), float(pressure.double().square().sum())],
-        "pressure": pressure.cpu() if mesh.rank == 0 else None,
-    }
+    pressure = gathered_pressure(result, mesh, n)
+    return dict(
+        numbers, rank=mesh.rank, coords=list(mesh.coords), flags=list(flags), iterations=iters,
+        converged=result.cg.converged, relative_residual=result.cg.relative_residual,
+        recomputed_residual=float(result.residual_rel_l2),
+        local_dofs=distributed.host_local_dofs(fine.solvable, mesh, shape0),
+        block_shapes=[list(c.shape) for c in hier.levels], launches=launches, exchanges=exchanges,
+        digests=digests, errs=errs, solves=solves,
+        pressure_digest=[float(pressure.double().sum()), float(pressure.double().square().sum())],
+        pressure=pressure.cpu() if mesh.rank == 0 else None,
+    )
 
 
 # Published H100 SXM peaks (NVIDIA data sheet) for the bounds: device
@@ -607,7 +693,8 @@ def main(argv=None) -> int:
                   / blas.l2_norm(rhs3, fine3.solvable))
     print(f"[3] recomputed relative residual: {float(result.residual_rel_l2):.3e} in fp32, {rel64:.3e} in fp64 "
           f"from the same fp32 solution (the recurrence: {result.cg.relative_residual:.3e})")
-    print(f"[3] peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    peak3 = torch.cuda.max_memory_allocated() / 2**30
+    print(f"[3] peak device memory {peak3:.2f} GiB")
     require(result.cg.converged and result.cg.relative_residual <= 1e-5, "did not converge to 1e-5")
     require(tuple(result.pressure.shape) == (n, n, n), "pressure shape")
     require(all(tuple(v.shape) == tuple(u.shape) for v, u in zip(result.velocity, velocity)),
@@ -1693,7 +1780,8 @@ def main(argv=None) -> int:
     phi_a, vel_a = sdf.splash_scene((m, m, m), device=dev, dtype=torch.float32)
     w_a = sdf.open_box_weights((m, m, m), device=dev, dtype=torch.float32)
     single_a = free_surface.project(free_surface.build_setup(phi_a, w_a, config=config), vel_a, config=config)
-    scene_a = (phi_a.cpu().numpy(), tuple(v.cpu().numpy() for v in vel_a), tuple(w.cpu().numpy() for w in w_a))
+    scene_a = dict(phi=phi_a.cpu().numpy(), velocity=tuple(v.cpu().numpy() for v in vel_a),
+                   weights=tuple(w.cpu().numpy() for w in w_a))
     t0 = time.perf_counter()
     (r11a,) = dryrun.launch(f"{dryrun_job}:project_job", 1, "nccl", "cuda",
                             dict(n=m, bench=True, fields=True, print_line=False, scene=scene_a), timeout=300)
@@ -1707,26 +1795,39 @@ def main(argv=None) -> int:
     require(rel_a <= 1e-6, "[11a] pressure differs from the single process by more than 1e-6")
 
     # [11b] Four ranks on a (2, 2, 1) mesh, all on cuda:0, gloo with host
-    # staging: the bench projection at n^3 built with build_setup(mesh=).
+    # staging: the bench projection at n^3 through the partitioned build,
+    # every rank's blocks held against phase 3's setup cut to them.
+    from geometricmultigridpressuresolver_tpu_torch.parallel import sharding
+    from geometricmultigridpressuresolver_tpu_torch.parallel.mesh import DistMesh
+
     t0 = time.perf_counter()
     r11b = dryrun.launch("chip_smoke:rank_bench", 4, "gloo", "cuda", dict(n=n), timeout=900)
     t11b = time.perf_counter() - t0
     ref_m = result_m.pressure.cpu()
     for r in r11b:
         best = min(r["solves"], key=lambda sv: sv["seconds"])
+        st = r["project_stats"]
+        want = tensor_digests(sharding.shard_setup(setup, DistMesh((2, 2, 1), r["rank"], dev, "gloo"), config))
+        differ = sorted(k for k in want if r["digests"].get(k) != want[k])
         print(f"[11b] rank {r['rank']} {tuple(r['coords'])}: flags {r['flags']}, blocks {r['block_shapes'][:2]}, "
               f"{r['local_dofs']:,} local DOFs, {r['iterations']} iterations, relative residual "
-              f"{r['relative_residual']:.3e} (recomputed {r['recomputed_residual']:.3e}), setup {r['setup_s']:.2f} s, "
-              f"project {r['project_s']:.2f} s, peak device memory {r['peak_gib']:.2f} GiB; launches "
-              f"{r['launches']}, {r['exchanges']} halo exchanges (exact); kernels vs plain on the haloed "
-              f"blocks {r['errs']} [{card}]")
+              f"{r['relative_residual']:.3e} (recomputed {r['recomputed_residual']:.3e}); setup {r['setup_s']:.2f} s, "
+              f"project {r['project_s']:.2f} s; peak device memory: build {r['build_peak_gib']:.3f} GiB, "
+              f"projection {r['project_peak_gib']:.3f} GiB (phase 3's single process {peak3:.3f} GiB); "
+              f"{len(want) - len(differ)}/{len(want)} fields of the setup bit-identical to phase 3's cut (sha256); "
+              f"launches {r['launches']}, {r['exchanges']} halo exchanges (exact), {st['redistributes']} box moves "
+              f"{st['redistribute_s'] * 1e3:.1f} ms, {st['bytes_staged']:,} bytes staged in the projection; "
+              f"kernels vs plain on the haloed blocks {r['errs']} [{card}]")
         print(f"[11b] rank {r['rank']} best of {len(r['solves'])} solves {best['seconds']:.4f} s; per solve: "
               + "; ".join(f"{sv['seconds']:.4f} s, {sv['exchanges']} exchanges, {sv['bytes_staged']:,} bytes staged, "
                           f"exchanges {sv['exchange_ms']:.1f} ms (packing {sv['pack_ms']:.1f}), "
                           f"{sv['collectives']} collectives {sv['collective_ms']:.1f} ms, compute {sv['compute_ms']:.1f} ms"
                           for sv in r["solves"]) + f" [{card}]")
+        require(not differ, f"[11b] rank {r['rank']}: setup fields differ from phase 3's cut: {differ[:8]}")
         require(r["converged"] and r["relative_residual"] <= 1e-5, f"[11b] rank {r['rank']} did not converge to 1e-5")
         require(abs(r["iterations"] - iters) <= 1, f"[11b] rank {r['rank']}: iterations differ from phase 3 by more than 1")
+        require(r["build_peak_gib"] <= 0.5 * peak3,
+                f"[11b] rank {r['rank']}: the build peaks at {r['build_peak_gib']:.3f} GiB, over half of phase 3's")
     require(len({r["iterations"] for r in r11b}) == 1, "[11b] the ranks' iterations differ")
     require(len({tuple(r["pressure_digest"]) for r in r11b}) == 1, "[11b] the ranks' gathered pressures differ")
     _, rel_b3 = rel_err(r11b[0]["pressure"], result.pressure.cpu())
@@ -1773,6 +1874,57 @@ def main(argv=None) -> int:
           + "; ".join(f"rank {d['rank']}: {d['iterations']} iterations, {d['local_dofs']} local DOFs, "
                       f"halos {d['halo_ms']:.1f} ms, {d['staged_bytes']:,} bytes staged" for d in lines))
     require(proc.returncode == 0 and len(lines) == 2, f"[11d] the launcher failed: {proc.stderr[-2000:]}")
+
+    # [11e] Twice the size (512^3 at the default): one single-process build
+    # and projection here (freed before the spawn), then four gloo ranks on
+    # (2, 2, 1) through the partitioned build, one projection each.
+    ne = 2 * n
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base_e = torch.cuda.memory_allocated()
+    phi_e, vel_e = sdf.splash_scene((ne, ne, ne), device=dev, dtype=torch.float32)
+    w_e = sdf.open_box_weights((ne, ne, ne), device=dev, dtype=torch.float32)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    setup_e = free_surface.build_setup(phi_e, w_e, config=config)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    single_e = free_surface.project(setup_e, vel_e, config=config)
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    peak_e = (torch.cuda.max_memory_allocated() - base_e) / 2**30
+    ndof_e, iters_e = int(setup_e.problem.fine.solvable.sum()), single_e.cg.iterations
+    pressure_e = single_e.pressure.cpu()
+    print(f"[11e] single process, {ne}^3 bench splash: window {setup_e.expanded_shape}, levels "
+          f"{[tuple(c.shape) for c in setup_e.problem.hier.levels]}, {ndof_e:,} DOFs, {iters_e} iterations "
+          f"(relative residual {single_e.cg.relative_residual:.3e}); scene {t1 - t0:.2f} s, setup {t2 - t1:.2f} s, "
+          f"project {t3 - t2:.2f} s; peak device memory {peak_e:.3f} GiB above the {base_e / 2**30:.3f} GiB "
+          f"already held [{card}]")
+    require(single_e.cg.converged and single_e.cg.relative_residual <= 1e-5, "[11e] the single process did not converge")
+    del phi_e, vel_e, w_e, setup_e, single_e
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    r11e = dryrun.launch("chip_smoke:rank_project", 4, "gloo", "cuda", dict(n=ne), timeout=600)
+    t11e = time.perf_counter() - t0
+    for r in r11e:
+        st = r["project_stats"]
+        print(f"[11e] rank {r['rank']}: blocks {r['block_shapes'][:2]}, {r['local_dofs']:,} local DOFs, "
+              f"{r['iterations']} iterations, relative residual {r['relative_residual']:.3e}; setup {r['setup_s']:.2f} s, "
+              f"project {r['project_s']:.2f} s; peak device memory: build {r['build_peak_gib']:.3f} GiB, projection "
+              f"{r['project_peak_gib']:.3f} GiB; projection: {st['exchanges']} halo exchanges "
+              f"{st['exchange_s'] * 1e3:.1f} ms, {st['redistributes']} box moves {st['redistribute_s'] * 1e3:.1f} ms, "
+              f"{st['collectives']} collectives {st['collective_s'] * 1e3:.1f} ms, {st['bytes_staged']:,} bytes staged "
+              f"[{card}]")
+        require(r["converged"] and r["relative_residual"] <= 1e-5, f"[11e] rank {r['rank']} did not converge to 1e-5")
+        require(abs(r["iterations"] - iters_e) <= 1, f"[11e] rank {r['rank']}: iterations differ from the single process")
+    _, rel_e = rel_err(r11e[0]["pressure"], pressure_e)
+    dofs_e = sum(r["local_dofs"] for r in r11e)
+    print(f"[11e] 4 ranks at {ne}^3 in {t11e:.1f} s with the spawn: pressure max relative difference {rel_e:.3e} from "
+          f"the single process; local DOFs sum to {dofs_e:,} ({ndof_e:,}) [{card}]")
+    require(rel_e <= 1e-3, "[11e] pressure differs from the single process by more than 1e-3")
+    require(dofs_e == ndof_e, "[11e] the ranks' local DOFs do not sum to the single process's")
+    del pressure_e, r11e
     print(f"[11] phase 11 took {time.perf_counter() - t11:.1f} s [{card}]")
 
     src = "geometricmultigridpressuresolver_tpu_torch/csrc/"

@@ -16,15 +16,17 @@ projected velocity out.
 device that holds the setup.  In a frame loop, `build_setup(reuse_from=
 previous_setup)` keeps the window shape sticky while the liquid fits.
 
-Across ranks (`mesh=` a `parallel.mesh.DistMesh`): `build_setup` runs the
-same deterministic build on every rank's device and keeps the rank's
-blocks of the problem (`parallel.sharding.shard_setup`); the window
-origin is a static tuple, as `window_start_static` is in the JAX
-package's sharded setup.  `project` forms the right-hand side, the
-writeback and the divergence audit on the whole base grid on every rank;
-only the solve is distributed, and the pressure blocks are gathered
-before the writeback.  A partitioned build and a distributed right-hand
-side are not ported (ROADMAP).
+Across ranks (`mesh=` a `parallel.mesh.DistMesh`) both run partitioned
+(`parallel.sharding.partitioned_setup` / `partitioned_project`, the
+counterpart of the JAX package's SPMD setup and projection): each rank
+computes steps 1-3 on its base block grown by a halo, the window and
+every level the mesh splits on its block of them, and steps 5-9 on its
+blocks, so no rank holds a whole split grid.  The window origin is a
+static tuple, as `window_start_static` is in the JAX package's sharded
+setup.  The inputs may be whole grids or the rank's blocks
+(`distributed.make_global_grid`, with the base grid's global shape); the
+outputs are the rank's blocks (`distributed.gather_blocks` assembles a
+grid).
 """
 
 from __future__ import annotations
@@ -38,7 +40,7 @@ from geometricmultigridpressuresolver_tpu_torch import device as device_mod
 from geometricmultigridpressuresolver_tpu_torch.config import SolverConfig
 from geometricmultigridpressuresolver_tpu_torch.grids import CellLabel, MaterialLabel, face_shape
 from geometricmultigridpressuresolver_tpu_torch.ops import domain as domain_ops
-from geometricmultigridpressuresolver_tpu_torch.parallel import distributed, sharding
+from geometricmultigridpressuresolver_tpu_torch.parallel import sharding
 from geometricmultigridpressuresolver_tpu_torch.parallel.mesh import DistMesh
 from geometricmultigridpressuresolver_tpu_torch.solver import cg as cg_mod
 from geometricmultigridpressuresolver_tpu_torch.solver import mg as mg_mod
@@ -99,16 +101,19 @@ def build_material_labels(liquid_phi, cut_cell_weights: Sequence, solid_phi=None
     return torch.where(has_open, torch.where(liquid, LIQUID, AIR), SOLID).to(torch.int8)
 
 
+def valid_faces_axis(material, weights, axis: int):
+    """`classify_valid_faces` along one axis (`weights` that axis's face
+    array over the cells of `material`)."""
+    lo_lbl, hi_lbl = _lo_hi(material, axis)
+    inner = weights[_sl(axis, slice(1, -1))] > 0
+    v_int = inner & ((lo_lbl == LIQUID) | (hi_lbl == LIQUID))
+    return _pad_axis(v_int, axis, 1, 1, False)
+
+
 def classify_valid_faces(material, cut_cell_weights: Sequence) -> list:
     """A face is valid iff its weight > 0, both cells are in bounds, and at
     least one adjacent cell is LIQUID."""
-    valid = []
-    for axis in range(3):
-        lo_lbl, hi_lbl = _lo_hi(material, axis)
-        inner = cut_cell_weights[axis][_sl(axis, slice(1, -1))] > 0
-        v_int = inner & ((lo_lbl == LIQUID) | (hi_lbl == LIQUID))
-        valid.append(_pad_axis(v_int, axis, 1, 1, False))
-    return valid
+    return [valid_faces_axis(material, cut_cell_weights[axis], axis) for axis in range(3)]
 
 
 class ProjectionSetup(NamedTuple):
@@ -129,6 +134,9 @@ class ProjectionSetup(NamedTuple):
     base_pads: tuple[tuple[int, int], ...]
     padding: int                          # multigrid exterior padding
     mg_levels: int
+    # The base grid's global shape when the fields hold a rank's blocks
+    # (`parallel.sharding.partitioned_setup` / `shard_setup`), else None.
+    base_shape: tuple[int, int, int] | None = None
 
     @property
     def liquid_mask(self) -> torch.Tensor:
@@ -146,15 +154,19 @@ def _face_inv_theta(material, liquid_phi, axis: int, theta_clamp: float, dtype):
     )
 
 
+def face_fields_axis(material, liquid_phi, weights, axis: int, theta_clamp: float, dtype):
+    """(valid, grad_scale) of the faces along one axis."""
+    valid = valid_faces_axis(material, weights, axis)
+    inv_theta = _face_inv_theta(material, liquid_phi, axis, theta_clamp, dtype)
+    return valid, torch.where(valid, inv_theta, torch.ones_like(inv_theta))
+
+
 def face_projection_fields(material, liquid_phi, cut_cell_weights, theta_clamp: float, dtype):
     """(valid_faces, grad_scale): grad_scale is 1/theta on valid liquid-air
     faces, 1 elsewhere."""
-    valid = classify_valid_faces(material, cut_cell_weights)
-    grad_scale = []
-    for axis in range(3):
-        inv_theta = _face_inv_theta(material, liquid_phi, axis, theta_clamp, dtype)
-        grad_scale.append(torch.where(valid[axis], inv_theta, torch.ones_like(inv_theta)))
-    return valid, grad_scale
+    fields = [face_fields_axis(material, liquid_phi, cut_cell_weights[axis], axis, theta_clamp, dtype)
+              for axis in range(3)]
+    return [v for v, _ in fields], [g for _, g in fields]
 
 
 def _setup_base_fields(liquid_phi, cut_cell_weights, solid_phi, theta_clamp: float, dtype,
@@ -165,6 +177,28 @@ def _setup_base_fields(liquid_phi, cut_cell_weights, solid_phi, theta_clamp: flo
     `build_setup`'s window decisions, or with `host=False` as device
     tensors, read by nothing on the host (the frozen frame of
     `models.simulate.run_fused`, as the JAX package keeps them)."""
+    fields = base_label_fields(liquid_phi, cut_cell_weights, solid_phi, theta_clamp, dtype, dirichlet_band)
+    return fields + occupancy(fields[2], host)
+
+
+def occupancy(trimmed, host: bool = True):
+    """(per-axis projections of the non-EXTERIOR cells, their count), on
+    the host (numpy, int) or, with `host=False`, as device tensors."""
+    non_ext = trimmed != int(CellLabel.EXTERIOR)
+    projections = tuple(non_ext.any(dim=dims) for dims in ((1, 2), (0, 2), (0, 1)))
+    count = non_ext.sum()
+    if host:
+        projections, count = tuple(p.cpu().numpy() for p in projections), int(count)
+    return projections, count
+
+
+def base_label_fields(liquid_phi, cut_cell_weights, solid_phi, theta_clamp: float, dtype,
+                      dirichlet_band: int):
+    """Steps 1-3 without the occupancy: (material, mg_labels, trimmed,
+    mg_weights).  Each cell reads the fields within `dirichlet_band` + 2
+    cells of it (the trimming's rings, the labels' and theta's one-cell
+    neighbourhoods), which is the halo the partitioned setup grows a base
+    block by."""
     material = build_material_labels(liquid_phi, cut_cell_weights, solid_phi)
     valid = classify_valid_faces(material, cut_cell_weights)
     mg_labels = torch.where(
@@ -178,12 +212,7 @@ def _setup_base_fields(liquid_phi, cut_cell_weights, solid_phi, theta_clamp: flo
         inv_theta = _face_inv_theta(material, liquid_phi, axis, theta_clamp, dtype)
         mg_weights.append(torch.where(valid[axis], w * inv_theta, torch.zeros_like(w)))
     trimmed = domain_ops.trim_far_dirichlet(mg_labels, dirichlet_band)
-    non_ext = trimmed != int(CellLabel.EXTERIOR)
-    projections = tuple(non_ext.any(dim=dims) for dims in ((1, 2), (0, 2), (0, 1)))
-    count = non_ext.sum()
-    if host:
-        projections, count = tuple(p.cpu().numpy() for p in projections), int(count)
-    return material, mg_labels, trimmed, mg_weights, projections, count
+    return material, mg_labels, trimmed, mg_weights
 
 
 def _window(arr, start, base_pads, out_shape, fill):
@@ -260,12 +289,17 @@ def build_setup(
     device=None,
     reuse_from: ProjectionSetup | None = None,
     mesh=None,
+    base_shape=None,
 ) -> ProjectionSetup:
     """Steps 1-4 on `device` (default: the mesh's device, else liquid_phi's
     device if it is a tensor, else the card):
     labels, valid faces, MG domain and weights, the compact window and the
-    hierarchy.  With a `DistMesh`, every rank of the mesh builds the whole
-    setup and keeps its blocks of the problem (`sharding.shard_setup`).
+    hierarchy.  With a `DistMesh` every rank of the mesh calls this
+    together and builds only its blocks (`sharding.partitioned_setup`):
+    the inputs are whole grids, or, with `base_shape` (the base grid's
+    global cell shape), the rank's blocks of them as
+    `distributed.make_global_grid` cuts them (a face array's own n+1 axis
+    whole, `mesh.face_split`).
 
     `reuse_from` (the previous frame's setup) keeps its window shape when
     the new liquid still fits it with the same padding and depth, so every
@@ -276,10 +310,15 @@ def build_setup(
     if config is None:
         config = SolverConfig()
     validate_density(density)
-    validate_fields(liquid_phi, cut_cell_weights, solid_phi=solid_phi)
-    sd = config.solve_dtype
     if mesh is not None and device is None:
         device = mesh.device
+    if isinstance(mesh, DistMesh):
+        return sharding.partitioned_setup(
+            liquid_phi, cut_cell_weights, solid_phi, config, mesh, base_shape=base_shape,
+            validate=validate, reuse_from=reuse_from,
+        )
+    validate_fields(liquid_phi, cut_cell_weights, solid_phi=solid_phi)
+    sd = config.solve_dtype
     dev = device_mod.of(liquid_phi, device)
     liquid_phi = torch.as_tensor(liquid_phi, dtype=sd, device=dev)
     cut_cell_weights = tuple(torch.as_tensor(w, dtype=sd, device=dev) for w in cut_cell_weights)
@@ -290,8 +329,61 @@ def build_setup(
         liquid_phi, cut_cell_weights, solid_phi, config.theta_clamp, sd, config.dirichlet_band
     )
     base_shape = tuple(liquid_phi.shape)
+    geom = window_geometry(projections, non_ext_count, base_shape, config, reuse_from)
+    labels, exp_weights = _expand_window_fields(
+        trimmed if config.compact_domain else mg_labels, mg_weights, geom.start, geom.base_pads,
+        geom.expanded_shape,
+    )
+    if validate:
+        assert domain_ops.check_boundary_cells(labels, exp_weights)
+        assert domain_ops.check_exterior_shell(labels)
+
+    mg_dtype, fine_dtype, fine_full = mgpcg.fine_plan(config)
+    levels, flags, label_levels, fine = mg_mod._build_levels(
+        labels, exp_weights, geom.target_levels(config), config.boundary_width, mg_dtype,
+        config.mg_ew_dtype, fine_dtype, fine_full,
+    )
+    hier = mg_mod._finish_hierarchy(
+        levels, flags, label_levels, config, validate=validate, host_fw=exp_weights
+    )
+    return ProjectionSetup(
+        problem=mgpcg._finish_problem(hier, fine, fine_full),
+        material=material,
+        weights=cut_cell_weights,
+        liquid_phi=liquid_phi,
+        window_start=geom.start,
+        expanded_shape=tuple(labels.shape),
+        base_pads=geom.base_pads,
+        padding=geom.padding,
+        mg_levels=geom.mg_levels,
+    )
+
+
+class WindowGeometry(NamedTuple):
+    """The multigrid window of a base grid: depth, padding, shape, the base
+    grid's exterior padding and the window's origin in padded-base
+    coordinates (host integers, the same on every rank)."""
+
+    mg_levels: int
+    padding: int
+    expanded_shape: tuple[int, int, int]
+    base_pads: tuple[tuple[int, int], ...]
+    start: tuple[int, int, int]
+
+    def target_levels(self, config: SolverConfig) -> int:
+        if config.max_mg_levels is not None:
+            return min(self.mg_levels, config.max_mg_levels)
+        return self.mg_levels
+
+
+def window_geometry(projections, non_ext_count: int, base_shape, config: SolverConfig,
+                    reuse_from: ProjectionSetup | None = None) -> WindowGeometry:
+    """Step 4's decisions from the occupancy of the trimmed labels (host
+    projections and count): the compact window, or the reference's
+    full-grid expansion without `config.compact_domain`, kept sticky by
+    `reuse_from`."""
+    base_shape = tuple(int(n) for n in base_shape)
     if config.compact_domain:
-        window_labels = trimmed
         if non_ext_count == 0:
             # No liquid: a tiny all-EXTERIOR window keeps everything
             # well-formed, and the zero-RHS early-out makes the solve free.
@@ -306,7 +398,6 @@ def build_setup(
     else:
         mg_levels, padding, expanded_shape = domain_ops.expansion_params(base_shape)
         bbox = tuple((0, n) for n in base_shape)
-        window_labels = mg_labels
 
     # Sticky window shape (free_surface.py:605-635 of the JAX package): the
     # fit test uses the minimal requirement; a regrown window adds
@@ -337,38 +428,7 @@ def build_setup(
         min(lo, b + plo + phi - e)
         for (lo, _), b, (plo, phi), e in zip(bbox, base_shape, base_pads, expanded_shape)
     )
-    labels, exp_weights = _expand_window_fields(
-        window_labels, mg_weights, start, base_pads, tuple(expanded_shape)
-    )
-    if validate:
-        assert domain_ops.check_boundary_cells(labels, exp_weights)
-        assert domain_ops.check_exterior_shell(labels)
-
-    mg_dtype, fine_dtype, fine_full = mgpcg.fine_plan(config)
-    target_levels = mg_levels
-    if config.max_mg_levels is not None:
-        target_levels = min(target_levels, config.max_mg_levels)
-    levels, flags, label_levels, fine = mg_mod._build_levels(
-        labels, exp_weights, target_levels, config.boundary_width, mg_dtype,
-        config.mg_ew_dtype, fine_dtype, fine_full,
-    )
-    hier = mg_mod._finish_hierarchy(
-        levels, flags, label_levels, config, validate=validate, host_fw=exp_weights
-    )
-    setup = ProjectionSetup(
-        problem=mgpcg._finish_problem(hier, fine, fine_full),
-        material=material,
-        weights=cut_cell_weights,
-        liquid_phi=liquid_phi,
-        window_start=start,
-        expanded_shape=tuple(labels.shape),
-        base_pads=base_pads,
-        padding=padding,
-        mg_levels=mg_levels,
-    )
-    if isinstance(mesh, DistMesh):
-        setup = sharding.shard_setup(setup, mesh, config)
-    return setup
+    return WindowGeometry(mg_levels, padding, tuple(expanded_shape), base_pads, start)
 
 
 def embed_window(base, window_start, base_pads, expanded_shape) -> torch.Tensor:
@@ -398,17 +458,22 @@ def negative_divergence(liquid_mask, velocity, weights, solid_velocity=None) -> 
     return torch.where(liquid_mask, div, torch.zeros_like(div))
 
 
+def pressure_gradient_axis(u, pressure, valid, grad_scale, axis: int):
+    """`apply_pressure_gradient` on the face array `u` along one axis (the
+    faces of `pressure`'s cells)."""
+    inner = _sl(axis, slice(1, -1))
+    p_lo, p_hi = _lo_hi(pressure, axis)
+    grad = torch.zeros_like(u)
+    grad[inner] = (p_hi - p_lo) * grad_scale[inner]
+    return torch.where(valid, u - grad, u)
+
+
 def apply_pressure_gradient(velocity, pressure, valid_faces, grad_scale) -> tuple:
     """v -= grad(p) on valid faces, with the ghost-fluid 1/theta scale."""
-    out = []
-    for axis in range(3):
-        u = velocity[axis]
-        inner = _sl(axis, slice(1, -1))
-        p_lo, p_hi = _lo_hi(pressure, axis)
-        grad = torch.zeros_like(u)
-        grad[inner] = (p_hi - p_lo) * grad_scale[axis][inner]
-        out.append(torch.where(valid_faces[axis], u - grad, u))
-    return tuple(out)
+    return tuple(
+        pressure_gradient_axis(velocity[axis], pressure, valid_faces[axis], grad_scale[axis], axis)
+        for axis in range(3)
+    )
 
 
 def divergence_stats(liquid_mask, velocity, weights, solid_velocity=None):
@@ -418,6 +483,20 @@ def divergence_stats(liquid_mask, velocity, weights, solid_velocity=None):
     count = torch.clamp(torch.sum(liquid_mask), min=1)
     total = torch.sum(div)
     return torch.max(torch.abs(div)), total, total / count
+
+
+def solve_and_check(problem, rhs, x0, config: SolverConfig, mesh=None):
+    """Step 7 and the recomputed residual norms: (CG result, ||b - A x|| /
+    ||b||, max |b - A x|).  The solve's operators also recompute its
+    residual, so a sharded fine level's coefficients are exchanged once
+    per projection."""
+    rhs, x0 = mgpcg.solve_inputs(problem, rhs, x0, config, mesh)
+    stages = mgpcg.solve_stages(problem, config, mesh)
+    cg_result = mgpcg.run_stages(stages, problem, rhs, x0, config)
+    rel_l2, linf = cg_mod.recomputed_residual_norms(
+        stages.residual, cg_result.x, rhs, problem.fine.solvable, stages.ranks,
+    )
+    return cg_result, rel_l2, linf
 
 
 class ProjectionResult(NamedTuple):
@@ -445,12 +524,16 @@ def project(
     block (`mgpcg.solve(..., mesh=)`).
 
     With a `DistMesh` every rank calls this together with its share of the
-    setup (`build_setup(mesh=)`) and the whole velocity: steps 5, 6, 8 and
-    9 run on the whole base grid on every rank, the solve on the rank's
-    blocks; the result's `cg.x` and `pressure` are the gathered whole
-    grids, the recomputed residual norms are over all ranks."""
+    setup (`build_setup(mesh=)`) and runs steps 5-9 on its blocks
+    (`sharding.partitioned_project`): `velocity`, `solid_velocity` and
+    `old_pressure` are whole grids or the rank's blocks of them; the
+    result's `pressure` and `velocity` are the rank's blocks of the base
+    grid, `cg.x` its block of the window, and the audit scalars and the
+    recomputed residual norms are over all ranks."""
     if config is None:
         config = SolverConfig()
+    if isinstance(mesh, DistMesh):
+        return sharding.partitioned_project(setup, velocity, solid_velocity, old_pressure, config, mesh)
     validate_fields(setup.material, setup.weights, velocity=velocity)
     sd = config.solve_dtype
     dev = setup.liquid_phi.device
@@ -471,21 +554,7 @@ def project(
         warm = torch.where(liquid_mask, old, torch.zeros_like(old))
         x0 = embed_window(warm, setup.window_start, setup.base_pads, setup.expanded_shape)
 
-    # The solve's operators also recompute its residual, so a sharded fine
-    # level's coefficients are exchanged once per projection.
-    problem = setup.problem
-    rhs, x0 = mgpcg.solve_inputs(problem, rhs, x0, config, mesh)
-    stages = mgpcg.solve_stages(problem, config, mesh)
-    cg_result = mgpcg.run_stages(stages, problem, rhs, x0, config)
-    rel_l2, linf = cg_mod.recomputed_residual_norms(
-        stages.residual, cg_result.x, rhs, problem.fine.solvable, stages.ranks,
-    )
-    if isinstance(mesh, DistMesh):
-        layout = mgpcg.fine_layout(problem, config, mesh)
-        cg_result = cg_result._replace(
-            x=distributed.gather_blocks(cg_result.x, mesh, layout.shape, layout.split)
-        )
-
+    cg_result, rel_l2, linf = solve_and_check(setup.problem, rhs, x0, config, mesh)
     pressure = extract_window(cg_result.x, setup.window_start, setup.base_pads, rhs_base.shape)
     pressure = torch.where(liquid_mask, pressure, torch.zeros_like(pressure))
     new_velocity = apply_pressure_gradient(velocity, pressure, valid_faces, grad_scale)

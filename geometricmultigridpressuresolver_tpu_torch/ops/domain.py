@@ -204,6 +204,19 @@ def coarse_lane_pad(fine_nz: int) -> int:
     return 0
 
 
+def vote_labels(fine_labels: torch.Tensor) -> torch.Tensor:
+    """The 8-children vote of `coarsen_labels`, before its boundary pass:
+    each coarse cell reads only its own children, so a block of even
+    extents votes on its own."""
+    if any(s % 2 for s in fine_labels.shape):
+        raise ValueError(f"cannot coarsen odd extents {tuple(fine_labels.shape)}")
+    nx, ny, nz = (s // 2 for s in fine_labels.shape)
+    children = fine_labels.reshape(nx, 2, ny, 2, nz, 2)
+    has_dirichlet = (children == DIR).any(dim=(1, 3, 5))
+    has_interior = is_solvable(children).any(dim=(1, 3, 5))
+    return torch.where(has_dirichlet, DIR, torch.where(has_interior, INT, EXT)).to(LABEL_DTYPE)
+
+
 def coarsen_labels(fine_labels: torch.Tensor, lane_align: bool = False) -> torch.Tensor:
     """One level of label coarsening (8-children vote + boundary pass).
 
@@ -211,15 +224,7 @@ def coarsen_labels(fine_labels: torch.Tensor, lane_align: bool = False) -> torch
     else EXTERIOR.  With `lane_align`, the coarse grid gains
     `coarse_lane_pad` trailing EXTERIOR cells along z.
     """
-    if any(s % 2 for s in fine_labels.shape):
-        raise ValueError(f"cannot coarsen odd extents {tuple(fine_labels.shape)}")
-    nx, ny, nz = (s // 2 for s in fine_labels.shape)
-    children = fine_labels.reshape(nx, 2, ny, 2, nz, 2)
-    has_dirichlet = (children == DIR).any(dim=(1, 3, 5))
-    has_interior = is_solvable(children).any(dim=(1, 3, 5))
-    coarse = torch.where(
-        has_dirichlet, DIR, torch.where(has_interior, INT, EXT)
-    ).to(LABEL_DTYPE)
+    coarse = vote_labels(fine_labels)
     if lane_align:
         extra = coarse_lane_pad(fine_labels.shape[2])
         if extra:
@@ -371,6 +376,12 @@ def check_boundary_cells(labels, face_weights: Sequence | None) -> bool:
     """Every INTERIOR cell is fully regular; every BOUNDARY cell is justified;
     no solvable cell on the grid's outer shell."""
     labels = _host(labels)
+    if not _regular_labels(labels, _irregular(labels, face_weights)):
+        return False
+    return check_exterior_shell(torch.where(is_solvable(labels), labels, EXT))
+
+
+def _irregular(labels: torch.Tensor, face_weights) -> torch.Tensor:
     irregular = torch.zeros(labels.shape, dtype=torch.bool)
     for axis in range(3):
         for direction in (0, 1):
@@ -380,9 +391,31 @@ def check_boundary_cells(labels, face_weights: Sequence | None) -> bool:
         for axis in range(3):
             wl, wu = _cell_faces(_host(face_weights[axis]), axis)
             irregular |= (wl != 1) | (wu != 1)
+    return irregular
 
-    if bool(irregular[labels == INT].any()):
+
+def _regular_labels(labels: torch.Tensor, irregular: torch.Tensor) -> bool:
+    """Every INTERIOR cell regular, every BOUNDARY cell irregular."""
+    return not bool(irregular[labels == INT].any()) and not bool((~irregular[labels == BND]).any())
+
+
+def check_block(labels, face_weights, core: tuple, edges) -> bool:
+    """`check_boundary_cells` and `check_exterior_shell` on a rank's block
+    of a grid: `labels` (and `face_weights`, the faces of its cells, or
+    None) cover the block grown by a halo of at least one cell, clipped at
+    the grid's edges; `core` slices the block out of them; `edges[axis]`
+    says whether the block reaches the grid's (lower, upper) edge there.
+    Cells of the core are judged with their true neighbours, and only the
+    faces of the grid's own shell that the block holds are checked."""
+    labels = _host(labels)
+    irregular = _irregular(labels, face_weights)[core]
+    labels = labels[core]
+    if not _regular_labels(labels, irregular):
         return False
-    if bool((~irregular[labels == BND]).any()):
-        return False
-    return check_exterior_shell(torch.where(is_solvable(labels), labels, EXT))
+    for axis, sides in enumerate(edges):
+        for idx, at_edge in zip((0, -1), sides):
+            sl = [slice(None)] * 3
+            sl[axis] = idx
+            if at_edge and not bool((labels[tuple(sl)] == EXT).all()):
+                return False
+    return True

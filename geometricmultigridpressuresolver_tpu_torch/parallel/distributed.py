@@ -29,6 +29,14 @@ The collectives every rank runs in the same order:
     `interrupt_check`) on every rank.
   * `exchange`: the point-to-point messages of a halo exchange
     (`parallel.halo.exchange_halos`), one `dist.batch_isend_irecv`.
+  * `redistribute`: a grid moved from one set of per-rank boxes (a
+    `Layout`) into another (each rank's destination box, which may reach
+    past the grid: those cells take a fill value): every rank sends the
+    intersection of the box it owns with each other rank's destination and
+    receives the parts of its own, in one `exchange`.  It carries base
+    blocks into haloed blocks and window blocks (the partitioned setup, the
+    right-hand side, the warm start), and window blocks into the base boxes
+    of the writeback, never through a whole grid.
 
 Transport: under NCCL, CUDA tensors go straight to the collective.  Under
 gloo, a CUDA tensor is copied into a pinned host buffer before the
@@ -51,11 +59,22 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from geometricmultigridpressuresolver_tpu_torch.grids import face_shape
+
 from geometricmultigridpressuresolver_tpu_torch.parallel.mesh import (
+    Box,
     DistMesh,
+    block_box,
+    box_shape,
+    box_slices,
+    contains,
+    face_box,
+    face_split,
     factor_mesh,
     grid_split,
+    intersect,
     local_slices,
+    owner,
 )
 
 DEFAULT_TIMEOUT = datetime.timedelta(seconds=600)
@@ -143,6 +162,17 @@ def make_global_grid(
     return out.to(device=device, dtype=dtype).contiguous()
 
 
+def make_global_faces(cell_shape: Sequence[int], faces, mesh: DistMesh, dtype=None) -> tuple[torch.Tensor, ...]:
+    """This rank's blocks of a MAC face field over a cell grid of
+    `cell_shape` (three face arrays, each full-size or a callable as in
+    `make_global_grid`), each cut by `mesh.face_split`: the cells' split,
+    its own n+1 axis whole."""
+    return tuple(
+        make_global_grid(face_shape(cell_shape, a), f, mesh, face_split(mesh.shape, cell_shape, a), dtype)
+        for a, f in enumerate(faces)
+    )
+
+
 def distribute_grid(arr, mesh: DistMesh, min_per_device: int = 8) -> torch.Tensor:
     """This rank's block of a full grid (`parallel.sharding.shard_grid` for
     a full array given to every rank): 3-D grids are split by `grid_split`'s
@@ -154,10 +184,11 @@ def distribute_grid(arr, mesh: DistMesh, min_per_device: int = 8) -> torch.Tenso
 
 
 def distribute_problem(problem, mesh: DistMesh, config=None):
-    """This rank's share of a `mgpcg.PoissonProblem` that every rank holds
-    whole (each rank built the same problem deterministically): moved to
-    the mesh's device, the levels the solve runs sharded cut to the rank's
-    blocks (`parallel.sharding.shard_problem`)."""
+    """This rank's share of a whole `mgpcg.PoissonProblem` handed to every
+    rank (built by either package): moved to the mesh's device, the levels
+    the solve runs sharded cut to the rank's blocks
+    (`parallel.sharding.shard_problem`).  `mgpcg.build_problem(mesh=)`
+    builds the blocks directly instead."""
     from geometricmultigridpressuresolver_tpu_torch.parallel import sharding
 
     return sharding.shard_problem(problem, mesh, config)
@@ -247,11 +278,11 @@ def _all_gather(mesh: DistMesh, t: torch.Tensor) -> list[torch.Tensor]:
 
 
 def ordered_sum(mesh: DistMesh, value: torch.Tensor, owned: bool = True) -> torch.Tensor:
-    """The sum over the ranks of a 0-d partial, added in rank order in the
+    """The elementwise sum over the ranks of a partial (a 0-d dot, or any
+    tensor of one shape on every rank), added in rank order in the
     partial's dtype, the same bits on every rank; a rank that does not own
     its block contributes zero."""
-    v = value.reshape(())
-    parts = _all_gather(mesh, v if owned else torch.zeros_like(v))
+    parts = _all_gather(mesh, value if owned else torch.zeros_like(value))
     acc = parts[0]
     for p in parts[1:]:
         acc = acc + p
@@ -259,10 +290,10 @@ def ordered_sum(mesh: DistMesh, value: torch.Tensor, owned: bool = True) -> torc
 
 
 def ordered_max(mesh: DistMesh, value: torch.Tensor, owned: bool = True) -> torch.Tensor:
-    """The largest of the ranks' 0-d values (an owned block's; others give
-    -inf), the same on every rank."""
-    v = value.reshape(())
-    parts = _all_gather(mesh, v if owned else torch.full_like(v, float("-inf")))
+    """The elementwise largest of the ranks' values (an owned block's;
+    others give the dtype's lowest), the same on every rank."""
+    low = float("-inf") if value.is_floating_point() else torch.iinfo(value.dtype).min
+    parts = _all_gather(mesh, value if owned else torch.full_like(value, low))
     acc = parts[0]
     for p in parts[1:]:
         acc = torch.maximum(acc, p)
@@ -314,3 +345,91 @@ def exchange(mesh: DistMesh, sends, recvs) -> list[torch.Tensor]:
         for work in dist.batch_isend_irecv(ops):
             work.wait()
     return [_unstaged(mesh, w, like.device) for w, (like, _, _) in zip(wires, recvs)]
+
+
+class Layout(NamedTuple):
+    """How a grid of global `shape` lies across the ranks: rank r's tensor
+    holds the box `held[r]`, and sends from the box `owned[r]` (None:
+    nothing); the owned boxes tile the grid once, so every cell has one
+    sender."""
+
+    shape: tuple[int, ...]
+    held: tuple[Box, ...]
+    owned: tuple[Box | None, ...]
+
+
+def block_layout(mesh: DistMesh, shape: Sequence[int], split) -> Layout:
+    """The blocks of a grid split on `split` (`make_global_grid`'s), ranks
+    with equal blocks electing the lowest as the sender (`DistMesh.owns`)."""
+    shape = tuple(int(n) for n in shape)
+    held = tuple(block_box(mesh.shape, shape, r, split) for r in range(mesh.size))
+    return Layout(shape, held, tuple(b if owner(mesh.shape, r, split) else None for r, b in enumerate(held)))
+
+
+def faces_layout(mesh: DistMesh, cell_shape: Sequence[int], split, axis: int) -> Layout:
+    """The faces along `axis` of each rank's block of a cell grid split on
+    `split` (a block's upper face plane is also its neighbour's lower one:
+    the lower block sends it, the last block its grid's last plane too)."""
+    cells = block_layout(mesh, cell_shape, split)
+    n = cells.shape[axis]
+    shape = tuple(s + (a == axis) for a, s in enumerate(cells.shape))
+
+    def own(box):
+        lo, hi = box[axis]
+        return tuple((lo, hi + (hi == n)) if a == axis else b for a, b in enumerate(box))
+
+    return Layout(shape, tuple(face_box(b, axis) for b in cells.held),
+                  tuple(None if b is None else own(b) for b in cells.owned))
+
+
+class Move(NamedTuple):
+    """One piece of a `redistribute`: the cells `box` (global indices) go
+    from rank `src` to rank `dst`; `local` when `dst` already holds them."""
+
+    src: int
+    dst: int
+    box: Box
+    local: bool
+
+
+def redistribute_plan(layout: Layout, dest: Sequence[Box]) -> list[Move]:
+    """Every (owned box, destination box) intersection, in (dst, src) order.
+    Each cell of a destination box inside the grid comes from exactly one
+    move; cells outside the grid from none (they keep the fill).  Pure, so
+    every rank derives the same plan."""
+    moves = []
+    for d, dbox in enumerate(dest):
+        for s, obox in enumerate(layout.owned):
+            piece = None if obox is None else intersect(dbox, obox)
+            if piece is not None:
+                moves.append(Move(s, d, piece, s == d or contains(layout.held[d], piece)))
+    return moves
+
+
+def redistribute(mesh: DistMesh, t: torch.Tensor, layout: Layout, dest: Sequence[Box], fill=0) -> torch.Tensor:
+    """This rank's destination box `dest[mesh.rank]` of the grid whose
+    `layout.held[mesh.rank]` box `t` holds: cells outside the grid are
+    `fill`, the rest copied from this rank's own tensor where it holds them
+    and received from their sender otherwise.  Every rank calls this
+    together with the same layout and destinations."""
+    rank = mesh.rank
+    if tuple(t.shape) != box_shape(layout.held[rank]):
+        raise ValueError(f"a tensor of {tuple(t.shape)} for the box {layout.held[rank]}")
+    device_sync(t.device)
+    t0 = time.perf_counter()
+    out = t.new_full(box_shape(dest[rank]), fill)
+    sends, recvs, places = [], [], []
+    for mv in redistribute_plan(layout, dest):
+        if mv.dst == rank and mv.local:
+            out[box_slices(mv.box, dest[rank])] = t[box_slices(mv.box, layout.held[rank])]
+        elif mv.dst == rank:
+            recvs.append((t.new_empty(()).expand(box_shape(mv.box)), mv.src, 0))
+            places.append(mv.box)
+        elif mv.src == rank and not mv.local:
+            sends.append((t[box_slices(mv.box, layout.held[rank])], mv.dst, 0))
+    for box, part in zip(places, exchange(mesh, sends, recvs)):
+        out[box_slices(box, dest[rank])] = part
+    device_sync(t.device)
+    mesh.stats.redistributes += 1
+    mesh.stats.redistribute_s += time.perf_counter() - t0
+    return out

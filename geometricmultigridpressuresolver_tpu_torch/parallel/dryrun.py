@@ -26,7 +26,9 @@ the ranks load the built library instead of each running nvcc.
 tol 1e-5, at most 200 iterations); each rank prints one JSON line with its
 rank, iterations, relative residual, local DOFs, the milliseconds its
 halo exchanges took and the bytes it staged through host memory.
-`solve_job` solves a given labelled domain (`mgpcg.build_problem(mesh=)`).
+Each rank builds and projects from its own blocks of the inputs, and the
+results stay its blocks (gathered only for `fields`).  `solve_job` solves
+a given labelled domain (`mgpcg.build_problem(mesh=)`).
 """
 
 from __future__ import annotations
@@ -151,30 +153,54 @@ def _sync(mesh) -> None:
 
 
 def project_job(mesh, n: int = 32, bench: bool = False, tolerance: float = 1e-7,
-                fields: bool = False, print_line: bool = True, scene=None) -> dict:
+                fields: bool = False, print_line: bool = True, scene=None, config=None) -> dict:
     """The rank side of the dryrun: the n^3 splash built with
-    `build_setup(mesh=)` and projected with `project(mesh=)`.  `scene`
-    (liquid SDF, velocity, cut-cell weights as arrays) replaces the port's
-    splash scene.  Returns the JSON line's numbers (and, with `fields`, the
-    rank's blocks of the problem, the pressure and the velocity as numpy
-    arrays)."""
+    `build_setup(mesh=)` and projected with `project(mesh=)`, both from
+    this rank's blocks of the inputs (`distributed.make_global_grid` /
+    `make_global_faces`).  `scene` (a mapping of whole arrays: ``phi``,
+    ``velocity``, ``weights`` and optionally ``solid_phi``,
+    ``solid_velocity``, ``old_pressure``) replaces the port's splash scene;
+    `config` (a `SolverConfig`) replaces `tolerance` and `bench`.  Returns
+    the JSON line's numbers (and, with `fields`, the rank's blocks of the
+    problem, the shape of every tensor of its setup, the pressure and the
+    velocity gathered whole, as numpy arrays)."""
     from geometricmultigridpressuresolver_tpu_torch.config import SolverConfig
+    from geometricmultigridpressuresolver_tpu_torch.grids import face_shape
     from geometricmultigridpressuresolver_tpu_torch.models import free_surface, sdf
     from geometricmultigridpressuresolver_tpu_torch.parallel import distributed
+    from geometricmultigridpressuresolver_tpu_torch.parallel.mesh import face_split, grid_split
     from geometricmultigridpressuresolver_tpu_torch.solver import mg
 
-    config = bench_config() if bench else SolverConfig(tolerance=tolerance)
+    if config is None:
+        config = bench_config() if bench else SolverConfig(tolerance=tolerance)
     dtype = config.solve_dtype
     if scene is None:
         phi, velocity = sdf.splash_scene((n, n, n), device=mesh.device, dtype=dtype)
-        weights = sdf.open_box_weights((n, n, n), device=mesh.device, dtype=dtype)
-    else:
-        phi, velocity, weights = scene
-    setup = free_surface.build_setup(phi, weights, config=config, mesh=mesh)
-    mesh.stats.reset()
+        scene = dict(phi=phi, velocity=velocity,
+                     weights=sdf.open_box_weights((n, n, n), device=mesh.device, dtype=dtype))
+    base = tuple(scene["phi"].shape)
+    split = grid_split(mesh, base)
+    blocks = dict(
+        phi=distributed.make_global_grid(base, scene["phi"], mesh, split, dtype),
+        weights=distributed.make_global_faces(base, scene["weights"], mesh, dtype),
+        velocity=distributed.make_global_faces(base, scene["velocity"], mesh, dtype),
+    )
+    for key in ("solid_phi", "old_pressure"):
+        if scene.get(key) is not None:
+            blocks[key] = distributed.make_global_grid(base, scene[key], mesh, split, dtype)
+    if scene.get("solid_velocity") is not None:
+        blocks["solid_velocity"] = distributed.make_global_faces(base, scene["solid_velocity"], mesh, dtype)
+    del scene
     _sync(mesh)
     t0 = time.perf_counter()
-    result = free_surface.project(setup, velocity, config=config, mesh=mesh)
+    setup = free_surface.build_setup(blocks["phi"], blocks["weights"], blocks.get("solid_phi"), config=config,
+                                     mesh=mesh, base_shape=base)
+    _sync(mesh)
+    setup_s = time.perf_counter() - t0
+    mesh.stats.reset()
+    t0 = time.perf_counter()
+    result = free_surface.project(setup, blocks["velocity"], blocks.get("solid_velocity"),
+                                  blocks.get("old_pressure"), config=config, mesh=mesh)
     _sync(mesh)
     seconds = time.perf_counter() - t0
     hier = setup.problem.hier
@@ -189,11 +215,15 @@ def project_job(mesh, n: int = 32, bench: bool = False, tolerance: float = 1e-7,
         "relative_residual": result.cg.relative_residual,
         "recomputed_residual": float(result.residual_rel_l2),
         "max_divergence": float(result.max_divergence),
+        "avg_divergence": float(result.avg_divergence),
+        "accumulated_divergence": float(result.accumulated_divergence),
         "local_dofs": distributed.host_local_dofs(setup.problem.fine.solvable, mesh, setup.expanded_shape),
         "flags": list(mg.level_flags(hier, config, mesh)),
         "halo_ms": mesh.stats.exchange_s * 1e3,
         "exchanges": mesh.stats.exchanges,
+        "redistributes": mesh.stats.redistributes,
         "staged_bytes": mesh.stats.bytes_staged,
+        "setup_s": setup_s,
         "project_s": seconds,
     }
     if print_line:
@@ -205,9 +235,25 @@ def project_job(mesh, n: int = 32, bench: bool = False, tolerance: float = 1e-7,
         out["shapes"] = [list(s) for s in hier.shapes]
         out["expanded_shape"] = list(setup.expanded_shape)
         out["window_start"] = list(setup.window_start)
-        out["pressure"] = result.pressure.cpu().numpy()
-        out["velocity"] = [v.cpu().numpy() for v in result.velocity]
+        out["setup_shapes"] = {path: tuple(t.shape) for path, t in named_tensors(setup)}
+        out["base"] = {"material": _numpy(setup.material), "liquid_phi": _numpy(setup.liquid_phi),
+                       "weights": [_numpy(w) for w in setup.weights]}
+        out["pressure"] = distributed.gather_blocks(result.pressure, mesh, base, split).cpu().numpy()
+        out["velocity"] = [
+            distributed.gather_blocks(v, mesh, face_shape(base, a), face_split(mesh.shape, base, a)).cpu().numpy()
+            for a, v in enumerate(result.velocity)
+        ]
     return out
+
+
+def named_tensors(tree, path: str = "setup"):
+    """(path, tensor) for every tensor in a (nested) tuple of tensors, such
+    as a `ProjectionSetup`."""
+    if isinstance(tree, torch.Tensor):
+        yield path, tree
+    elif isinstance(tree, tuple):
+        for name, item in zip(getattr(tree, "_fields", None) or range(len(tree)), tree):
+            yield from named_tensors(item, f"{path}.{name}")
 
 
 def solve_job(mesh, labels, weights, mg_levels: int, rhs, config_kwargs: dict | None = None,

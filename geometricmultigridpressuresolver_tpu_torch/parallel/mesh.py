@@ -18,16 +18,26 @@ decomposition in JAX's row-major device order:
 
 `constrain_grid` (a GSPMD sharding constraint inside a traced setup
 program) has no counterpart: the port has no partitioner to steer.  On a
-`BlockMesh` every tensor is whole on its device; on a `DistMesh` every
-rank runs the whole setup and then keeps its blocks
-(`parallel.sharding.shard_setup`), so nothing is left to constrain.
+`BlockMesh` every tensor is whole on its device; on a `DistMesh` the
+partitioned build (`parallel.sharding.partitioned_setup`) computes each
+level on the rank's block grown by the halo the next step reads and cuts
+the core, so no rank ever holds a whole split grid.
+
+Boxes.  A box is a tuple of three ``(lo, hi)`` pairs in a grid's global
+index space: a rank's block (`block_box`), the block grown by a halo and
+clipped at the grid's edges (`grow_box`), their intersections
+(`intersect`).  The multigrid window maps onto the base grid as JAX's
+``_window_static`` does: window cell j is base cell ``start - pad_lo + j``
+(`window_offset`, `shift_box`), cells outside the base taking a fill
+value.  All of them are pure, so every rank's boxes can be checked
+without starting a world.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any
+from typing import Any, Sequence
 
 import numpy as np
 import torch
@@ -74,7 +84,8 @@ class CommStats:
     """What a rank's collectives cost since the last `reset`: halo
     exchanges (calls of `halo.exchange_halos`) and their seconds, the
     seconds spent packing the slabs (the strided y slabs' copies), the
-    bytes copied between the card and pinned host buffers for gloo, and the
+    bytes copied between the card and pinned host buffers for gloo, the
+    box moves (`distributed.redistribute`) with their seconds, and the
     ordered collectives (`distributed.ordered_sum`, `gather_blocks`, ...)
     with their seconds.  Each timer is a host clock between two device
     syncs, so it holds its own work and none of the kernels queued before
@@ -85,6 +96,8 @@ class CommStats:
     exchange_s: float = 0.0
     pack_s: float = 0.0
     bytes_staged: int = 0
+    redistributes: int = 0
+    redistribute_s: float = 0.0
     collectives: int = 0
     collective_s: float = 0.0
 
@@ -127,7 +140,13 @@ class DistMesh:
         coordinate 0 on every unsplit axis (JAX
         `distributed.host_local_dofs`' owner election).  A whole grid is
         owned by rank 0."""
-        return all(s or c == 0 for c, s in zip(self.coords, split))
+        return owner(self.shape, self.rank, split)
+
+
+def owner(mesh_shape, rank: int, split) -> bool:
+    """`DistMesh.owns` for any rank of a mesh of `mesh_shape`."""
+    coords = np.unravel_index(rank, tuple(mesh_shape))
+    return all(s or int(c) == 0 for c, s in zip(coords, split))
 
 
 def make_mesh(n_blocks: int, device=None) -> BlockMesh:
@@ -180,3 +199,71 @@ def local_slices(mesh_shape, global_shape, rank: int, split=None) -> tuple[slice
         b = n // m
         out.append(slice(int(c) * b, (int(c) + 1) * b) if s else slice(0, int(n)))
     return tuple(out)
+
+
+def face_split(mesh_shape, cell_shape, axis: int, min_per_device: int = 8) -> tuple[bool, bool, bool]:
+    """The axes a MAC face array of `axis` over a cell grid of `cell_shape`
+    is cut on: the cell grid's (`split_axes`), its own n+1 axis whole.  Where
+    n divides, n+1 does not, so this is `split_axes` of the face shape; for
+    an odd n whose n+1 would divide it keeps the face array's blocks over
+    the cells' (the faces of a cell block are then local on every other
+    axis)."""
+    split = list(split_axes(mesh_shape, cell_shape, min_per_device))
+    split[axis] = False
+    return tuple(split)
+
+
+Box = tuple[tuple[int, int], ...]
+
+
+def block_box(mesh_shape, global_shape, rank: int, split) -> Box:
+    """Rank `rank`'s block of a grid of `global_shape` split on `split`, as
+    a box (`local_slices`)."""
+    return tuple((s.start, s.stop) for s in local_slices(mesh_shape, global_shape, rank, split))
+
+
+def grow_box(box: Box, depth: int, global_shape, axes=(True, True, True)) -> Box:
+    """`box` grown by `depth` cells on each side of the axes `axes`, clipped
+    at the grid's edges (so a computation on the grown box sees the grid's
+    own boundary where the box reaches it)."""
+    return tuple(
+        (max(lo - depth, 0), min(hi + depth, int(n))) if a else (lo, hi)
+        for (lo, hi), n, a in zip(box, global_shape, axes)
+    )
+
+
+def face_box(cell_box: Box, axis: int) -> Box:
+    """The faces along `axis` of the cells of `cell_box` (one more on its
+    upper side)."""
+    return tuple((lo, hi + 1) if a == axis else (lo, hi) for a, (lo, hi) in enumerate(cell_box))
+
+
+def intersect(a: Box, b: Box) -> Box | None:
+    """The common cells of two boxes, or None."""
+    out = tuple((max(al, bl), min(ah, bh)) for (al, ah), (bl, bh) in zip(a, b))
+    return out if all(lo < hi for lo, hi in out) else None
+
+
+def contains(outer: Box, inner: Box) -> bool:
+    return all(ol <= il and ih <= oh for (ol, oh), (il, ih) in zip(outer, inner))
+
+
+def box_shape(box: Box) -> tuple[int, ...]:
+    return tuple(hi - lo for lo, hi in box)
+
+
+def box_slices(box: Box, origin: Box | None = None) -> tuple[slice, ...]:
+    """Slices of `box` in a tensor that holds the box `origin` (default: the
+    grid itself, origin 0)."""
+    off = (0,) * len(box) if origin is None else tuple(lo for lo, _ in origin)
+    return tuple(slice(lo - o, hi - o) for (lo, hi), o in zip(box, off))
+
+
+def shift_box(box: Box, offset: Sequence[int]) -> Box:
+    return tuple((lo + o, hi + o) for (lo, hi), o in zip(box, offset))
+
+
+def window_offset(window_start, base_pads) -> tuple[int, int, int]:
+    """Window cell j lies on base cell ``j + window_offset`` (JAX
+    ``_window_static``: ``start - pad_lo``)."""
+    return tuple(int(s) - int(plo) for s, (plo, _) in zip(window_start, base_pads))

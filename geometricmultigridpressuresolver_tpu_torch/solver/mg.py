@@ -29,7 +29,8 @@ With a mesh, a level is "sharded" where the mesh splits it and
 dtype, the others narrow as before (JAX mg.py:807-812).
 
 Across ranks (a `DistMesh`) a "sharded" level holds the rank's blocks
-(`parallel.sharding.shard_problem`; the hierarchy's `shapes` keep the
+(`parallel.sharding.partitioned_problem` builds it, `shard_problem` cuts
+it from a whole hierarchy; the hierarchy's `shapes` keep the
 global shapes) and every other level is whole on every rank and runs the
 single-device chunk kernel as without a mesh.  JAX leaves a level that the
 mesh splits but the block kernels cannot take sharded under jnp and lets
@@ -80,7 +81,8 @@ class MGHierarchy(NamedTuple):
     `coarse_dofs` maps bucket slots to flat cell indices of the coarsest
     level; pad slots hold the out-of-range index ncell.  `shapes` are the
     levels' global shapes when the levels hold a rank's blocks
-    (`parallel.sharding.shard_problem`), None when every level is whole.
+    (`parallel.sharding.partitioned_problem` / `shard_problem`), None when
+    every level is whole.
     """
 
     levels: tuple[stencil.LevelCoeffs, ...]
@@ -152,6 +154,18 @@ def _build_levels(
     return tuple(levels), tuple(flags), tuple(label_levels), fine
 
 
+def candidate_shapes(shape, target_levels: int) -> list[tuple[int, int, int]]:
+    """The shapes `_build_levels` gives its levels before the capping: each
+    coarse level half the one above (`coarsen_labels(lane_align=True)`'s z
+    padding included) while the extents stay even, at most
+    `target_levels`."""
+    shapes = [tuple(int(n) for n in shape)]
+    while len(shapes) < target_levels and all(n % 2 == 0 for n in shapes[-1]):
+        nx, ny, nz = shapes[-1]
+        shapes.append((nx // 2, ny // 2, nz // 2 + domain_ops.coarse_lane_pad(nz)))
+    return shapes
+
+
 def build_hierarchy(
     labels,
     face_weights: Sequence | None,
@@ -202,8 +216,14 @@ def _finish_hierarchy(
             assert domain_ops.check_coarsening(fine, coarse_lv)
             assert domain_ops.check_boundary_cells(coarse_lv, None)
 
-    device = levels[0].diag.device
-    coarsest = label_levels[-1].cpu().numpy()
+    dofs, minv, chol = coarse_system(label_levels[-1], dtype, levels[0].diag.device)
+    return MGHierarchy(levels=tuple(levels), coarse_dofs=dofs, coarse_minv=minv, coarse_chol=chol)
+
+
+def coarse_system(labels, dtype, device):
+    """The coarsest level's direct solver from its whole labels, factored on
+    the host in float64: (coarse_dofs, coarse_minv, coarse_chol)."""
+    coarsest = labels.cpu().numpy()
     a, idx = assembled.assemble_poisson(coarsest, None)
     ndof = a.shape[0]
     if ndof > 16384:
@@ -226,12 +246,7 @@ def _finish_hierarchy(
             minv = 0.5 * (minv + minv.T)  # exactly symmetric preconditioner
     dofs = np.flatnonzero(np.asarray(idx).ravel() >= 0)
     dofs = np.pad(dofs, (0, nd_pad - ndof), constant_values=idx.size)
-    return MGHierarchy(
-        levels=tuple(levels),
-        coarse_dofs=torch.as_tensor(dofs, dtype=torch.int64, device=device),
-        coarse_minv=minv,
-        coarse_chol=chol,
-    )
+    return torch.as_tensor(dofs, dtype=torch.int64, device=device), minv, chol
 
 
 def coarse_system_device(c: stencil.LevelCoeffs, nd_pad: int):
@@ -340,13 +355,19 @@ def level_flags(hier: MGHierarchy, config: SolverConfig, mesh=None) -> tuple[str
     Without a mesh, or on a one-block mesh, every level is "single".  Under
     `config.interior_smoother="chebyshev"` every level is "plain" (the
     smoother's plain PyTorch block, JAX mg.py:685)."""
+    return shape_flags(level_shapes(hier), config, mesh)
+
+
+def shape_flags(shapes, config: SolverConfig, mesh=None) -> tuple[str, ...]:
+    """`level_flags` of a hierarchy whose levels have the global `shapes`
+    (the partitioned build decides from them before any level exists)."""
+    nlev = len(shapes)
     if config.interior_smoother == "chebyshev":
-        return ("plain",) * hier.num_levels
+        return ("plain",) * nlev
     if mesh is None or mesh.size == 1:
-        return ("single",) * hier.num_levels
-    nlev = hier.num_levels
+        return ("single",) * nlev
     flags = []
-    for level, shape in enumerate(level_shapes(hier)):
+    for level, shape in enumerate(shapes):
         split = grid_split(mesh, shape)
         sharded = any(split) and fused_sharded.sharded_eligible(shape, split, mesh, level, nlev)
         flags.append("sharded" if sharded else "single")

@@ -15,8 +15,9 @@ callback to the CG loop (`solver.cg`), checked once per iteration.
 profiler (`utils.profiling.instrumented_solve`) runs the same ones.
 
 Across ranks (`mesh=` a `parallel.mesh.DistMesh`, JAX mgpcg.py:94-113's
-sharded build) `build_problem` builds the whole problem on every rank and
-keeps the rank's blocks (`parallel.sharding.shard_problem`); `solve` takes
+sharded build) `build_problem` builds only the rank's blocks of the levels
+the solve runs sharded (`parallel.sharding.partitioned_problem`, the
+partitioned build `free_surface.build_setup(mesh=)` runs); `solve` takes
 the right-hand side and the start as the whole fine grid or as the rank's
 block of it and returns the rank's block of x.  The CG step and the
 recomputed residual then run on the rank's haloed fine block, and every
@@ -69,13 +70,19 @@ def build_problem(
     """Problem from expanded and relabeled labels (+ finest weights), built
     on `device` (default: the mesh's device, else the labels' device if
     they are a tensor, else the card).  With a `DistMesh`, every rank
-    builds the whole problem and keeps its blocks (`shard_problem`)."""
+    calls this together with the whole labels and weights and builds only
+    its blocks (`sharding.partitioned_problem`: equal bit for bit to
+    `shard_problem` of the whole build)."""
     if config is None:
         config = SolverConfig()
     dtype, fine_dtype, fine_full = fine_plan(config)
     target_levels = mg_levels
     if config.max_mg_levels is not None:
         target_levels = min(target_levels, config.max_mg_levels)
+    if isinstance(mesh, DistMesh):
+        fetch, shape = sharding.grid_fetch(labels, face_weights, mesh, config)
+        return sharding.partitioned_problem(fetch, shape, target_levels, config, mesh, relabel=False,
+                                            validate=validate)
     if mesh is not None and device is None:
         device = mesh.device
     dev = device_mod.of(labels, device)
@@ -88,10 +95,7 @@ def build_problem(
         fine_dtype, fine_full,
     )
     hier = mg_mod._finish_hierarchy(levels, flags, label_levels, config, validate=validate, host_fw=fw)
-    problem = _finish_problem(hier, fine, fine_full)
-    if isinstance(mesh, DistMesh):
-        problem = sharding.shard_problem(problem, mesh, config)
-    return problem
+    return _finish_problem(hier, fine, fine_full)
 
 
 def _finish_problem(hier: mg_mod.MGHierarchy, fine, fine_full: bool) -> PoissonProblem:

@@ -800,3 +800,29 @@ def test_two_ranks_on_the_card_kernel_vs_plain(device):
         assert sum(plain["launches"].values()) == 0
         assert kernel["iterations"] == plain["iterations"]
         np.testing.assert_allclose(kernel["x"], plain["x"], rtol=0, atol=1e-12)
+
+
+def test_two_ranks_on_the_card_partitioned_projection(device):
+    """Two ranks ((2, 1, 1), gloo, both on this card) build the 40^3 splash
+    from their base blocks (`build_setup(mesh=, base_shape=)`) and project
+    it in fp64 (L0 sharded): each rank's blocks of the problem equal those
+    of the same world's plain run (kernel_mode="torch") bit for bit, and
+    the iterations, pressure and velocity match it to 1e-12."""
+    from geometricmultigridpressuresolver_tpu_torch.config import SolverConfig
+    from geometricmultigridpressuresolver_tpu_torch.parallel import dryrun
+
+    job = "geometricmultigridpressuresolver_tpu_torch.parallel.dryrun:project_job"
+    runs = {
+        mode: dryrun.launch(job, 2, "gloo", "cuda", dict(
+            n=40, fields=True, print_line=False, config=SolverConfig(tolerance=1e-8, kernel_mode=mode)), timeout=300)
+        for mode in ("auto", "torch")
+    }
+    for kernel, plain in zip(runs["auto"], runs["torch"]):
+        assert kernel["flags"][0] == "sharded" and kernel["converged"]
+        for got, want in zip(kernel["levels"], plain["levels"]):
+            for f in got:
+                np.testing.assert_array_equal(got[f], want[f])
+        assert kernel["iterations"] == plain["iterations"]
+        np.testing.assert_allclose(kernel["pressure"], plain["pressure"], rtol=0, atol=1e-12)
+        for a in range(3):
+            np.testing.assert_allclose(kernel["velocity"][a], plain["velocity"][a], rtol=0, atol=1e-12)

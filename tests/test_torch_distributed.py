@@ -1,9 +1,11 @@
 """The port's mesh of ranks (parallel/distributed.py, parallel/sharding.py,
-the rank-to-rank halos, the ordered dots, build_setup / solve / project
-with `mesh=` a `DistMesh`) against the JAX package.
+the rank-to-rank halos, the ordered dots, the partitioned build_setup /
+build_problem and project with `mesh=` a `DistMesh`) against the JAX
+package.
 
-Pure helpers (`local_slices`, `make_global_grid`, `host_local_dofs`) are
-checked rank by rank without a world.  The rest spawns worlds of 2 or 4
+Pure helpers (`local_slices`, `make_global_grid`, `host_local_dofs`, the
+boxes of `parallel.mesh` and `redistribute`'s plan) are checked rank by
+rank without a world.  The rest spawns worlds of 2 or 4
 ranks with the gloo backend on the CPU (`parallel.dryrun.launch`): the
 ranks import this module with JAX blocked, so it imports JAX and the JAX
 package only inside the functions the test process runs (`_jax`).  The
@@ -23,7 +25,23 @@ from geometricmultigridpressuresolver_tpu_torch.config import SolverConfig
 from geometricmultigridpressuresolver_tpu_torch.models import free_surface, sdf
 from geometricmultigridpressuresolver_tpu_torch.ops import blas
 from geometricmultigridpressuresolver_tpu_torch.parallel import distributed, dryrun, halo
-from geometricmultigridpressuresolver_tpu_torch.parallel.mesh import BlockMesh, DistMesh, grid_split, local_slices
+from geometricmultigridpressuresolver_tpu_torch.grids import CellLabel, MaterialLabel, face_shape
+from geometricmultigridpressuresolver_tpu_torch.ops import domain
+from geometricmultigridpressuresolver_tpu_torch.parallel import sharding
+from geometricmultigridpressuresolver_tpu_torch.parallel.mesh import (
+    BlockMesh,
+    DistMesh,
+    box_shape,
+    box_slices,
+    face_box,
+    face_split,
+    grid_split,
+    grow_box,
+    intersect,
+    local_slices,
+    shift_box,
+    window_offset,
+)
 from geometricmultigridpressuresolver_tpu_torch.solver import mg, mgpcg
 
 torch.set_num_threads(1)
@@ -53,6 +71,27 @@ def _launch(job, world_size, **kwargs):
     return dryrun.launch(job, world_size, "gloo", "cpu", kwargs, timeout=TIMEOUT)
 
 
+def solid_scene(splash40: dict, seed: int = 9) -> dict:
+    """The 40^3 splash with two small drops whose surfaces cross the x and
+    y block edges of a (2, 2, 1) mesh (liquid-air faces on the edge
+    planes, Dirichlet cells kept by liquid across them), a solid sphere in
+    the pool with a seeded solid velocity, and a seeded warm start, in the
+    splash's units (dx = 1/40)."""
+    n = 40
+    c = np.arange(n) + 0.5
+    x, y, z = np.meshgrid(c, c, c, indexing="ij")
+    drops = np.minimum(np.sqrt((x - 17.7) ** 2 + (y - 18.0) ** 2 + (z - 33.0) ** 2) - 2.5,
+                       np.sqrt((x - 31.0) ** 2 + (y - 17.7) ** 2 + (z - 21.0) ** 2) - 2.5) / n
+    rng = np.random.default_rng(seed)
+    return dict(
+        splash40,
+        phi=np.minimum(splash40["phi"], drops),
+        solid_phi=(4.0 - np.sqrt((x - 20.3) ** 2 + (y - 8.0) ** 2 + (z - 14.0) ** 2)) / n,
+        solid_velocity=tuple(0.1 * rng.standard_normal(face_shape((n, n, n), a)) for a in range(3)),
+        old_pressure=1e-3 * rng.standard_normal((n, n, n)),
+    )
+
+
 # ---- rank-side jobs (run in the spawned ranks) ------------------------------------
 
 
@@ -60,7 +99,9 @@ def world4_job(mesh, grid, simple16, scenes):
     """The (2, 2, 1) world: (d) halo exchanges at depths 8 and 1 of this
     rank's block of `grid`; (g) a dot and a max of seeded blocks over the
     ranks, and a solve that rank 0 interrupts after 3 iterations; (f) the
-    splash `scenes` built and projected with `mesh=`."""
+    `scenes` (name: (whole arrays, config)) built from this rank's blocks
+    and projected with `mesh=`, and the 44^3 scene built once more with
+    `validate=True`."""
     out = {"rank": mesh.rank}
     split = (True, True, False)
     block = torch.as_tensor(grid)[local_slices(mesh.shape, grid.shape, mesh.rank, split)].contiguous()
@@ -78,8 +119,10 @@ def world4_job(mesh, grid, simple16, scenes):
     labels, mg_levels, rhs = simple16
     stopped = dryrun.solve_job(mesh, labels, None, mg_levels, rhs, dict(tolerance=1e-12), interrupt_at=3)
     out["interrupted"] = {k: stopped[k] for k in ("iterations", "converged", "flags")}
-    for n, scene in scenes.items():
-        out[n] = dryrun.project_job(mesh, n=n, tolerance=1e-7, fields=True, print_line=False, scene=scene)
+    for name, (scene, config) in scenes.items():
+        out[name] = dryrun.project_job(mesh, fields=True, print_line=False, scene=scene, config=config)
+    scene, config = scenes[44]
+    free_surface.build_setup(scene["phi"], scene["weights"], config=config, mesh=mesh, validate=True)
     return out
 
 
@@ -143,6 +186,80 @@ def test_host_local_dofs_match_jax(shape):
     assert got == want == int(solvable.sum())
 
 
+def test_boxes():
+    """A block grown by a halo is clipped at the grid's edges; the faces of
+    a cell box, intersections, and the window-to-base offset of JAX's
+    ``_window_static`` (base index = start - pad_lo + j)."""
+    shape = (32, 16, 24)
+    core = ((16, 32), (0, 8), (0, 24))
+    assert grow_box(core, 6, shape, (True, True, False)) == ((10, 32), (0, 14), (0, 24))
+    assert face_box(core, 0) == ((16, 33), (0, 8), (0, 24))
+    assert intersect(core, ((30, 40), (4, 6), (2, 3))) == ((30, 32), (4, 6), (2, 3))
+    assert intersect(core, ((0, 16), (0, 8), (0, 24))) is None
+    assert box_shape(core) == (16, 8, 24) and box_slices(((18, 20), (1, 2), (0, 4)), core)[:2] == (
+        slice(2, 4), slice(1, 2))
+    off = window_offset((3, 0, 5), ((4, 4), (2, 6), (4, 4)))
+    assert off == (-1, -2, 1) and shift_box(core, off) == ((15, 31), (-2, 6), (1, 25))
+
+
+def _moved(full, layout, dest, fill):
+    """`redistribute` by its plan, rank by rank without a world: each
+    destination box filled from the tensors the ranks hold (their boxes
+    of `full`), with a count of the moves that wrote each cell."""
+    outs = [np.full(box_shape(b), fill, dtype=full.dtype) for b in dest]
+    counts = [np.zeros(box_shape(b), dtype=np.int32) for b in dest]
+    for mv in distributed.redistribute_plan(layout, dest):
+        holder = mv.dst if mv.local else mv.src
+        assert mv.local == (mv.src == mv.dst or all(
+            lo <= plo and phi <= hi for (lo, hi), (plo, phi) in zip(layout.held[mv.dst], mv.box)))
+        held = full[box_slices(layout.held[holder])]
+        outs[mv.dst][box_slices(mv.box, dest[mv.dst])] = held[box_slices(mv.box, layout.held[holder])]
+        counts[mv.dst][box_slices(mv.box, dest[mv.dst])] += 1
+    return outs, counts
+
+
+@pytest.mark.parametrize("mesh_shape, shape, faces", [
+    ((2, 2, 1), (32, 32, 16), None), ((2, 2, 1), (32, 32, 16), 0), ((2, 2, 1), (32, 32, 16), 1),
+    ((2, 2, 2), (16, 16, 8), None), ((2, 2, 2), (16, 16, 8), 2),
+])
+def test_redistribute_plan_covers_each_cell_once(mesh_shape, shape, faces):
+    """Every destination cell inside the grid comes from exactly one move,
+    every cell outside it keeps the fill: base blocks (replicated where
+    the mesh leaves an axis whole) into blocks grown by a halo, and into
+    window blocks reaching past the grid (the padded base of
+    `free_surface._window`); the faces of each rank's cells into the
+    face arrays' blocks (whole along their own axis)."""
+    mesh = DistMesh(mesh_shape, 0, CPU, "gloo")
+    split = grid_split(mesh, shape)
+    if faces is None:
+        layout = distributed.block_layout(mesh, shape, split)
+    else:
+        layout = distributed.faces_layout(mesh, shape, split, faces)
+    full = np.random.default_rng(5).standard_normal(layout.shape)
+    window = (40, 36, 20)
+    off = (-4, -2, -3)
+    win_split = grid_split(mesh, window)
+    cases = [
+        [grow_box(b, 6, layout.shape, split) for b in layout.held],
+        [shift_box(distributed.block_layout(mesh, window, win_split).held[r], off) for r in range(mesh.size)],
+    ]
+    if faces is not None:
+        fs = face_split(mesh.shape, shape, faces)
+        cases.append(distributed.block_layout(mesh, face_shape(shape, faces), fs).held)
+    pad = [(max(0, -o), max(0, w + o - n)) for o, w, n in zip(off, window, layout.shape)]
+    padded = np.pad(full, pad, constant_values=-7.0)
+    for dest in cases:
+        outs, counts = _moved(full, layout, dest, -7.0)
+        for box, out, count in zip(dest, outs, counts):
+            inside = np.zeros(box_shape(box), dtype=bool)
+            clip = intersect(box, tuple((0, n) for n in layout.shape))
+            if clip is not None:
+                inside[box_slices(clip, box)] = True
+            np.testing.assert_array_equal(count, inside.astype(np.int32))
+            want = padded[tuple(slice(lo + p, hi + p) for (lo, hi), (p, _) in zip(box, pad))]
+            np.testing.assert_array_equal(out, want)
+
+
 def test_initialize_without_card_raises(monkeypatch):
     """No backend and no card: NCCL cannot run, so it raises before starting
     anything; it does not start gloo on the CPU instead."""
@@ -185,11 +302,18 @@ def worlds():
         "sine32": (s_labels, s_weights, s_levels, j["helpers"].random_solvable_field(s_labels, seed=21)),
     }
     grid = np.random.default_rng(7).standard_normal((32, 32, 8))
+    cfg7 = SolverConfig(tolerance=1e-7)
     scenes = {}
     for n in (32, 40):
         phi, velocity = j["sdf"].splash_scene((n, n, n))
         weights = j["sdf"].open_box_weights((n, n, n))
-        scenes[n] = (np.asarray(phi), tuple(np.asarray(v) for v in velocity), tuple(np.asarray(w) for w in weights))
+        scenes[n] = (dict(phi=np.asarray(phi), velocity=tuple(np.asarray(v) for v in velocity),
+                          weights=tuple(np.asarray(w) for w in weights)), cfg7)
+    scenes["solid"] = (solid_scene(scenes[40][0]), cfg7)
+    phi44, velocity44 = sdf.splash_scene((44, 44, 44), device="cpu")
+    scenes[44] = (dict(phi=phi44.numpy(), velocity=tuple(v.numpy() for v in velocity44),
+                       weights=tuple(w.numpy() for w in sdf.open_box_weights((44, 44, 44), device="cpu"))),
+                  SolverConfig(tolerance=1e-7, coarse_dof_target=300))
     with ThreadPoolExecutor(2) as ex:
         w4 = ex.submit(_launch, f"{__name__}:world4_job", 4, grid=grid,
                        simple16=(labels, mg_levels, rhs16), scenes=scenes)
@@ -209,16 +333,20 @@ def worlds():
         for name, (lab, w, lev, rhs) in problems.items():
             problem = mgpcg.build_problem(lab, w, lev, cfg, device="cpu")
             single[name] = (int(problem.fine.solvable.sum()), mgpcg.solve(problem, torch.from_numpy(rhs), config=cfg))
-        jcfg7, cfg7 = j["Config"](tolerance=1e-7), SolverConfig(tolerance=1e-7)
+        jcfg7 = j["Config"](tolerance=1e-7)
         splash = {}
-        for n, (phi, velocity, weights) in scenes.items():
-            jsetup = j["fs"].build_setup(phi, weights, config=jcfg7)
-            splash[n] = (jsetup, j["fs"].project(jsetup, velocity, config=jcfg7))
-        phi, velocity, weights = scenes[40]
-        setup40 = free_surface.build_setup(phi, weights, config=cfg7, device="cpu")
-        port40 = free_surface.project(setup40, velocity, config=cfg7)
+        for name in (32, 40, "solid"):
+            sc = scenes[name][0]
+            jsetup = j["fs"].build_setup(sc["phi"], sc["weights"], sc.get("solid_phi"), config=jcfg7)
+            splash[name] = (jsetup, j["fs"].project(jsetup, sc["velocity"], sc.get("solid_velocity"),
+                                                     sc.get("old_pressure"), config=jcfg7))
+        port = {}
+        for name in (40, 44):
+            sc, cfg = scenes[name]
+            setup = free_surface.build_setup(sc["phi"], sc["weights"], config=cfg, device="cpu")
+            port[name] = (setup, free_surface.project(setup, sc["velocity"], config=cfg))
         return dict(grid=grid, problems=problems, jax16=jax16, jax_sine32=jax_sine32, single=single,
-                    splash=splash, port40=port40, w4=w4.result(), w2=w2.result())
+                    splash=splash, port=port, scenes=scenes, w4=w4.result(), w2=w2.result())
 
 
 @pytest.mark.parametrize("depth", [8, 1])
@@ -283,15 +411,16 @@ def test_two_rank_solve_matches_jax(worlds, fixture):
     assert sum(res["local_dofs"] for res in results) == dofs
 
 
-@pytest.mark.parametrize("n", [32, 40])
+@pytest.mark.parametrize("n", [32, 40, "solid"])
 def test_four_rank_setup_blocks_bit_identical(worlds, n):
-    """Every rank's blocks of the problem are the slices of JAX's whole
-    single-device build (as JAX `test_sharded_setup_bit_identical`): no
-    level split at 32^3, L0 split at 40^3."""
+    """Every rank's blocks of the problem, built from its base blocks, are
+    the slices of JAX's whole single-device build (as JAX
+    `test_sharded_setup_bit_identical`): no level split at 32^3, L0 split
+    at 40^3 and in the solid scene."""
     setup = worlds["splash"][n][0]
     results = [res[n] for res in worlds["w4"]]
     flags = results[0]["flags"]
-    assert flags[0] == ("sharded" if n == 40 else "single")
+    assert flags[0] == ("single" if n == 32 else "sharded")
     hier = setup.problem.hier
     for res in results:
         assert tuple(res["expanded_shape"]) == tuple(setup.expanded_shape)
@@ -309,16 +438,17 @@ def test_four_rank_setup_blocks_bit_identical(worlds, n):
             np.testing.assert_array_equal(res["coarse"][k], np.asarray(getattr(hier, k)))
 
 
-@pytest.mark.parametrize("n", [32, 40])
+@pytest.mark.parametrize("n", [32, 40, "solid"])
 def test_four_rank_projection_matches(worlds, n):
-    """`project(mesh=)` on 4 ranks: iterations equal, pressure and velocity
-    within 1e-11 of JAX's single device (JAX
+    """`project(mesh=)` on 4 ranks from their blocks: iterations equal,
+    pressure and velocity within 1e-11 of JAX's single device (JAX
     `test_sharded_setup_projection_matches`' tolerance), and at 40^3, where
     L0 runs sharded, of the port's single process too; local DOFs summing
-    to the total."""
+    to the total.  The solid scene adds a solid, its velocity and a warm
+    start."""
     setup, want = worlds["splash"][n]
     results = [res[n] for res in worlds["w4"]]
-    refs = [want] + ([worlds["port40"]] if n == 40 else [])
+    refs = [want] + ([worlds["port"][40][1]] if n == 40 else [])
     for res in results:
         for ref in refs:
             assert res["iterations"] == int(ref.cg.iterations) and res["converged"]
@@ -326,6 +456,102 @@ def test_four_rank_projection_matches(worlds, n):
             for a in range(3):
                 np.testing.assert_allclose(res["velocity"][a], np.asarray(ref.velocity[a]), rtol=0, atol=1e-11)
     assert sum(res["local_dofs"] for res in results) == int(np.asarray(setup.problem.fine.solvable).sum())
+
+
+def test_four_rank_l1_split_bit_identical(worlds):
+    """The smallest splash whose hierarchy runs L1 sharded as well as L0 on
+    (2, 2, 1) (44^3 with coarse_dof_target=300: window (64, 64, 64), L0-L2
+    sharded, the coarsest level whole): every rank's blocks of the problem
+    and of the base fields equal the port's single-process build cut by
+    `shard_setup`, bit for bit; the projection equals the single process's
+    (iterations, pressure and velocity within 1e-12); the ranks also passed
+    `validate=True` on this scene (`world4_job`)."""
+    setup, want = worlds["port"][44]
+    config = worlds["scenes"][44][1]
+    results = [res[44] for res in worlds["w4"]]
+    assert results[0]["flags"] == ["sharded", "sharded", "sharded", "single"]
+    for res in results:
+        mesh = DistMesh(tuple(res["mesh"]), res["rank"], CPU, "gloo")
+        share = sharding.shard_setup(setup, mesh, config)
+        pairs = list(zip(share.problem.hier.levels, res["levels"])) + [(share.problem.fine, res["fine"])]
+        for level, (c, got) in enumerate(pairs):
+            for f in c._fields:
+                np.testing.assert_array_equal(got[f], dryrun._numpy(getattr(c, f)), err_msg=f"[{level}] {f}")
+        for k in ("coarse_dofs", "coarse_minv", "coarse_chol"):
+            np.testing.assert_array_equal(res["coarse"][k], getattr(share.problem.hier, k).numpy())
+        np.testing.assert_array_equal(res["base"]["material"], share.material.numpy())
+        np.testing.assert_array_equal(res["base"]["liquid_phi"], share.liquid_phi.numpy())
+        for a in range(3):
+            np.testing.assert_array_equal(res["base"]["weights"][a], share.weights[a].numpy())
+        assert res["iterations"] == want.cg.iterations and res["converged"]
+        np.testing.assert_allclose(res["pressure"], want.pressure.numpy(), rtol=0, atol=1e-12)
+        for a in range(3):
+            np.testing.assert_allclose(res["velocity"][a], want.velocity[a].numpy(), rtol=0, atol=1e-12)
+
+
+@pytest.mark.parametrize("n", [40, 44])
+def test_partitioned_setup_holds_no_whole_grid(worlds, n):
+    """After `build_setup(mesh=)` no tensor of a rank's setup spans the whole
+    base or window grid on an axis the mesh splits (JAX
+    `test_sharded_setup_fine_level_is_partitioned`): the base fields are
+    the rank's blocks (a face array whole only along its own axis), the
+    window's levels and fine operator its blocks of a quarter of the
+    cells."""
+    scene = worlds["scenes"][n][0]
+    base = tuple(scene["phi"].shape)
+    for res in (r[n] for r in worlds["w4"]):
+        window = tuple(res["expanded_shape"])
+        mesh = DistMesh(tuple(res["mesh"]), res["rank"], CPU, "gloo")
+        split_b, split_w = grid_split(mesh, base), grid_split(mesh, window)
+        assert any(split_b) and any(split_w) and res["flags"][0] == "sharded"
+        for path, shape in res["setup_shapes"].items():
+            if len(shape) != 3:
+                continue
+            for a in range(3):
+                faces = [face_shape(base, f)[a] for f in range(3) if f != a]
+                if split_b[a]:
+                    assert shape[a] not in [base[a]] + faces, (path, shape)
+                if split_w[a]:
+                    assert shape[a] != window[a], (path, shape)
+        fine = res["setup_shapes"]["setup.problem.fine.diag"]
+        assert np.prod(fine) * mesh.size == np.prod(window)
+
+
+@pytest.mark.parametrize("n", [32, 40, "solid"])
+def test_four_rank_audit_matches_jax(worlds, n):
+    """The divergence audit over the ranks' cells (max by `ordered_max`,
+    the sum and the liquid count by `ordered_sum`) against JAX's single
+    device, and the same on every rank."""
+    want = worlds["splash"][n][1]
+    results = [res[n] for res in worlds["w4"]]
+    for key, tol in (("max_divergence", 1e-11), ("accumulated_divergence", 1e-11), ("avg_divergence", 1e-14)):
+        assert len({res[key] for res in results}) == 1, key
+        assert abs(results[0][key] - float(getattr(want, key))) <= tol, (key, results[0][key], float(getattr(want, key)))
+
+
+def test_solid_scene_reads_across_block_edges(worlds):
+    """The solid scene is a base-halo case on (2, 2, 1): liquid-air faces lie
+    on both block-edge planes (theta reads the neighbour block's SDF) and
+    trimming a block alone keeps other Dirichlet cells than trimming the
+    whole grid (the rings reach across the edge), so the bit-identical
+    blocks above rest on the partitioned build's base halo."""
+    scene, config = worlds["scenes"]["solid"]
+    t = torch.from_numpy
+    material, mg_labels, trimmed, _ = free_surface.base_label_fields(
+        t(scene["phi"]), tuple(t(w) for w in scene["weights"]), t(scene["solid_phi"]), config.theta_clamp,
+        torch.float64, config.dirichlet_band,
+    )
+    liquid, air = int(MaterialLabel.LIQUID), int(MaterialLabel.AIR)
+    for axis in (0, 1):
+        lo, hi = material.narrow(axis, 19, 1), material.narrow(axis, 20, 1)
+        assert bool((((lo == liquid) & (hi == air)) | ((lo == air) & (hi == liquid))).any()), axis
+    changed = 0
+    for r in range(4):
+        idx = local_slices((2, 2, 1), trimmed.shape, r, (True, True, False))
+        changed += int((domain.trim_far_dirichlet(mg_labels[idx], config.dirichlet_band) != trimmed[idx]).sum())
+    assert changed > 0
+    assert int(((t(scene["solid_phi"]) >= 0) & (material == liquid)).sum()) > 0
+    assert int((trimmed == int(CellLabel.DIRICHLET)).sum()) > 0
 
 
 def test_sharded_problem_rejects_a_second_cut():
