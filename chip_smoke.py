@@ -101,6 +101,24 @@ Phases (any failure exits non-zero and prints no result line):
      peak memory, exchanges, box moves, staged bytes per rank), held to
      1e-5, the single process's iterations +-1, its pressure within 1e-3
      and its DOF count.
+ 12. the transfers (config.transfer_mode; every earlier phase runs "auto",
+     which is the matrix form on the card): [12a] each transfer at each
+     level of the bench hierarchy in both forms, timed (CUDA events over
+     20 calls) with its device launches per call; the matrix form against
+     the slice form in fp32 (within 1e-6 relative, again with TF32
+     switched on here: the products stay IEEE) and fp64 (1e-13), in bf16
+     within one bf16 ulp of the same products accumulated exactly and
+     rounded where the form rounds; each product's GFLOP/s beside its
+     bytes and operations bounds; [12b] the 256^3 projection in both forms
+     (iterations +-1, pressure within 1e-3, kernel launches exact), solves
+     in turns (best wall, ms between CUDA events), one profiled solve each
+     (device launches by kind, host ops by calls, the host's launch
+     calls), and whether this run's faster form is the one "auto" takes;
+     [12c] vcycle_stage_times in both forms; [12d] the 512^3 splash in both
+     forms on one setup (iterations +-1, pressure within 1e-3, seconds,
+     peak memory); [12e] run_fused's 4 frames in both forms (seconds and
+     host syncs per frame).  Phase 8 also times one core scatter beside its
+     bounds.
 Every kernel's entry in the kernels JSON has its launches on its path (and
 on phase 10's blocks, `launches_test_node`, and per rank of [11b],
 `launches_distributed`), its
@@ -110,8 +128,8 @@ for the work this run's data needs -- inputs read on the solvable cells
 (`bound_ms`, also `bound_active_ms`) -- and over the whole window
 (`bound_window_ms`), and the library call's time where one PyTorch call
 computes the same thing.
-The last lines are the kernels JSON, the nvidia-smi line, and
-{"ok": true, "device": {...}}.
+The last lines are the transfers JSON (phase 12a's rows), the kernels
+JSON, the nvidia-smi line, and {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -581,6 +599,65 @@ def block_ops(schedule, cells: int, band_cells: int, dot: bool) -> int:
     Jacobi pass all of them."""
     per = {"b": band_cells, "r": cells // 2, "k": cells // 2, "j": cells}
     return OPS_PASS * sum(per[kind] for kind in schedule) + OPS_DOT * cells * dot
+
+
+def device_events(fn, calls: int = 10):
+    """(host launch calls, device events, device ms) per call of `fn`, from
+    torch.profiler over `calls` calls after one call as the profiler's
+    warm-up step: the host's kernel-launch calls (cudaLaunchKernel*, cuLaunchKernel*),
+    and every kernel, copy and fill the card ran."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    torch.cuda.synchronize()
+    kept = []
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1),
+                 on_trace_ready=lambda p: kept.append(p.key_averages())) as prof:
+        for n in (1, calls):
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+            prof.step()
+    dev = [e for e in kept[0] if getattr(e, "device_type", None) == DeviceType.CUDA
+           and not e.key.startswith("ProfilerStep")]  # the step's own range on the device timeline
+    host = sum(e.count for e in kept[0] if getattr(e, "device_type", None) != DeviceType.CUDA
+               and "LaunchKernel" in e.key)
+    return host / calls, sum(e.count for e in dev) / calls, sum(device_us(e) for e in dev) / 1e3 / calls
+
+
+def device_us(event) -> float:
+    """A profiler event's self device time in microseconds (the attribute's
+    name changed across torch versions)."""
+    us = getattr(event, "self_device_time_total", None)
+    return event.self_cuda_time_total if us is None else us
+
+
+def rounded_once_reference(kind: str, *args):
+    """The matrix-form transfer of bf16 `x` computed exactly (fp64) and
+    rounded to bf16 where the matrix form rounds: after each product, and
+    (prolongation) once for fine + 4 up after the last; the card's products
+    differ from it only by their fp32 accumulation."""
+    import torch
+
+    from geometricmultigridpressuresolver_tpu_torch.ops import transfer
+
+    bf16 = torch.bfloat16
+    if kind == "restrict":
+        x, coarse_solvable = args
+        out = x.double()
+        for axis in range(3):
+            r = transfer.restrict_axis_matrix(out, axis, coarse_solvable.shape[axis], 0)
+            out = transfer.axis_product(out, r, axis).to(bf16).double()
+        return torch.where(coarse_solvable, out, 0.0).to(bf16)
+    fine_x, coarse_x, fine_solvable = args
+    up = coarse_x.double()
+    for axis in range(3):
+        up = transfer.axis_product(up, transfer.prolong_axis_matrix(fine_x.shape[axis], up, axis, 0), axis)
+        if axis < 2:
+            up = up.to(bf16).double()
+    return torch.where(fine_solvable, (fine_x.double() + 4.0 * up).to(bf16), fine_x)
 
 
 def main(argv=None) -> int:
@@ -1372,6 +1449,15 @@ def main(argv=None) -> int:
     }
     print(f"[8] block-mesh CG step {times['cg_step_sharded'][0]:.4f} ms (recorded for PR 4: 0.8618 ms): "
           f"{', '.join(f'{k} {v:.4f} ms' for k, v in parts_ms.items())} [{card}]")
+    # One core scatter (halo.cu's core_scatter) against its own bounds:
+    # reads of the stacked cores (on the solvable cells, or all of them)
+    # and the write of the global field.
+    scatter_ms = cuda_ms(lambda: halo.core_scatter(pnh, geom0, "cuda"), reps)
+    scatter_s = bound(active_bytes(nsf, (z,), z.numel(), (z,)), 0)
+    scatter_w = bound(2 * nbytes(z), 0)
+    print(f"[8] core_scatter of one fp32 L0 field {scatter_ms:.4f} ms, bound over the solvable cells "
+          f"{scatter_s[0]:.4f} ms ({scatter_s[0] / scatter_ms:.0%}), over the whole window {scatter_w[0]:.4f} ms "
+          f"({scatter_w[0] / scatter_ms:.0%}) [{card}]")
     p0 = pre[0]
     stacked0 = p0.band.numel()
     stacked_in = (p0.inv_diag, p0.ew0, p0.ew1, p0.ew2, p0.band)
@@ -1927,6 +2013,261 @@ def main(argv=None) -> int:
     del pressure_e, r11e
     print(f"[11] phase 11 took {time.perf_counter() - t11:.1f} s [{card}]")
 
+    # ---- 12. the transfers: per-axis matrix products against shifted slices ----------
+    t12 = time.perf_counter()
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as torch_profile
+    from torch.profiler import schedule as profiler_schedule
+
+    from geometricmultigridpressuresolver_tpu_torch.ops import transfer
+
+    print(f"[12] card: {card_line()}")
+    require(mg.use_mm_transfers(config, dev), "[12] transfer_mode='auto' is not the matrix form on the card")
+    modes = {"mm": dataclasses.replace(config, transfer_mode="mm"),
+             "slice": dataclasses.replace(config, transfer_mode="slice")}
+    forms = {"mm": transfer.form(True), "slice": transfer.form(False)}
+    reps12 = 20
+
+    # [12a] Each transfer at each level of the bench hierarchy, both forms:
+    # time (CUDA events over 20 calls) and launches per call; the matrix
+    # form against the slice form in fp32 (also with TF32 switched on
+    # here: the products must stay IEEE) and fp64, and in bf16 against the
+    # same products accumulated exactly and rounded where the form rounds;
+    # each product's rate and its two bounds.
+    transfer_rows = []
+    tf32_was = torch.backends.cuda.matmul.allow_tf32
+    for lv in range(nlev - 1):
+        cf, cc = hier.levels[lv], hier.levels[lv + 1]
+        f, c = rand_field(cf), rand_field(cc)
+        shapes = f"L{lv} {tuple(cf.shape)} <-> L{lv + 1} {tuple(cc.shape)}"
+        calls = {
+            "restrict": lambda form, x=f, cs=cc.solvable: forms[form].restrict(x, cs),
+            "prolong_add": lambda form, x=f, y=c, fs=cf.solvable: forms[form].prolong_add(x, y, fs),
+        }
+        args = {"restrict": (f, cc.solvable), "prolong_add": (f, c, cf.solvable)}
+        for which, call in calls.items():
+            row = {"level": lv, "transfer": which, "fine": list(cf.shape), "coarse": list(cc.shape)}
+            for form in forms:
+                ms = cuda_ms(lambda: call(form), reps12)
+                launches12, events12, _ = device_events(lambda: call(form))
+                row[form] = {"ms": ms, "launches": launches12, "device_events": events12}
+            mm_fn, sl_fn = getattr(forms["mm"], which), getattr(forms["slice"], which)
+            _, e32 = rel_err(mm_fn(*args[which]), sl_fn(*args[which]))
+            torch.backends.cuda.matmul.allow_tf32 = True
+            try:
+                got_tf32 = mm_fn(*args[which])
+                require(torch.backends.cuda.matmul.allow_tf32, "[12a] the matrix form did not restore allow_tf32")
+            finally:
+                torch.backends.cuda.matmul.allow_tf32 = tf32_was
+            _, e32_tf32 = rel_err(got_tf32, sl_fn(*args[which]))
+            # fp64 inputs off the fp32 grid (fp32 values would make every
+            # product and sum exact in fp64).
+            a64 = tuple(t.double() * (1 + 1e-3 * torch.randn(t.shape, generator=gen, device=dev, dtype=torch.float64))
+                        if t.is_floating_point() else t for t in args[which])
+            _, e64 = rel_err(mm_fn(*a64), sl_fn(*a64))
+            a16 = tuple(t.to(torch.bfloat16) if t.is_floating_point() else t for t in args[which])
+            got16, sl16 = mm_fn(*a16), sl_fn(*a16)
+            ref16 = rounded_once_reference(which, *a16)
+            exact = mm_fn(*(t.double() if t.is_floating_point() else t for t in a16))
+            ulp = bf16_ulp(float(ref16.double().abs().max()))
+            u_ref = rel_err(got16, ref16)[0] / ulp
+            u_mm, u_sl = rel_err(got16, exact)[0] / ulp, rel_err(sl16, exact)[0] / ulp
+            u_pair = rel_err(got16, sl16)[0] / ulp
+            row.update(fp32_rel_err=e32, fp32_rel_err_tf32_on=e32_tf32, fp64_rel_err=e64,
+                       bf16_ulps_vs_rounded_once=u_ref, bf16_ulps_mm_vs_exact=u_mm,
+                       bf16_ulps_slice_vs_exact=u_sl, bf16_ulps_mm_vs_slice=u_pair)
+            # The three products of the matrix form, one at a time.
+            products = []
+            x = f if which == "restrict" else c
+            with blas.ieee_products():
+                for axis in range(3):
+                    if which == "restrict":
+                        a = transfer.restrict_axis_matrix(x, axis, cc.shape[axis], 0)
+                        fn = lambda x=x, a=a, axis=axis: transfer.axis_product(x, a, axis)  # noqa: E731
+                    elif axis < 2:
+                        a = transfer.prolong_axis_matrix(cf.shape[axis], x, axis, 0)
+                        fn = lambda x=x, a=a, axis=axis: transfer.axis_product(x, a, axis)  # noqa: E731
+                    else:
+                        a = transfer.prolong_axis_matrix(cf.shape[axis], x, axis, 0)
+                        fn = lambda x=x, a=a: torch.addmm(  # noqa: E731
+                            f.reshape(-1, f.shape[2]), x.reshape(-1, x.shape[2]), a.t(), alpha=4)
+                    y = fn()
+                    p_ms = cuda_ms(fn, reps12)
+                    flops = 2 * a.shape[0] * a.shape[1] * (x.numel() // x.shape[axis])
+                    moved = nbytes(x, y, a) + (nbytes(f) if which == "prolong_add" and axis == 2 else 0)
+                    t_bytes, t_ops = moved / HBM_BYTES_PER_S * 1e3, flops / FP32_OPS_PER_S * 1e3
+                    products.append({"axis": axis, "m_n_k": [a.shape[0], x.numel() // x.shape[axis], a.shape[1]],
+                                     "gflop": flops / 1e9, "ms": p_ms, "gflops_per_s": flops / p_ms / 1e6,
+                                     "bound_bytes_ms": t_bytes, "bound_ops_ms": t_ops,
+                                     "bound_by": "bytes" if t_bytes >= t_ops else "operations"})
+                    x = y
+            row["mm"]["products"] = products
+            transfer_rows.append(row)
+            print(f"[12a] {shapes} {which}: mm {row['mm']['ms']:.4f} ms ({row['mm']['launches']:g} kernel launches, "
+                  f"{row['mm']['device_events']:g} device events), slice {row['slice']['ms']:.4f} ms "
+                  f"({row['slice']['launches']:g} launches, {row['slice']['device_events']:g} device events); "
+                  f"mm vs slice: fp32 {e32:.3e} "
+                  f"(TF32 on: {e32_tf32:.3e}), fp64 {e64:.3e}; bf16 {u_ref:.3f} ulp from the rounded-once "
+                  f"reference (mm vs slice {u_pair:.2f} ulp; from the exact transfer: mm {u_mm:.2f}, slice "
+                  f"{u_sl:.2f} ulp) [{card}]")
+            for pr in products:
+                print(f"[12a]   product axis {pr['axis']} (m, n, k) {tuple(pr['m_n_k'])}: {pr['gflop']:.3f} GFLOP in "
+                      f"{pr['ms']:.4f} ms = {pr['gflops_per_s']:,.0f} GFLOP/s; bounds: bytes {pr['bound_bytes_ms']:.4f} "
+                      f"ms, operations {pr['bound_ops_ms']:.4f} ms ({pr['bound_by']} bind; "
+                      f"{max(pr['bound_bytes_ms'], pr['bound_ops_ms']) / pr['ms']:.0%} of it)")
+            require(e32 <= 1e-6 and e32_tf32 <= 1e-6,
+                    f"[12a] {shapes} {which}: fp32 matrix form {e32:.3e} / {e32_tf32:.3e} (TF32 on) from the slice form")
+            require(e64 <= 1e-13, f"[12a] {shapes} {which}: fp64 matrix form {e64:.3e} from the slice form")
+            require(u_ref <= 1.0, f"[12a] {shapes} {which}: bf16 matrix form {u_ref:.3f} ulp from its rounded-once "
+                    "reference")
+            require(0 < row["mm"]["launches"] < row["slice"]["launches"], f"[12a] {shapes} {which}: launches")
+
+    # [12b] The 256^3 projection in both forms: iterations, pressure, kernel
+    # launches against the plan; solves in turns (best wall, device ms by
+    # CUDA events), and one profiled warm solve each: launches by kernel
+    # and by host op, the host's kernel-launch calls.
+    proj12 = {}
+    for form, cfg in modes.items():
+        reset_counts()
+        proj12[form] = free_surface.project(setup, velocity, config=cfg)
+        torch.cuda.synchronize()
+        got12, want12 = read_counts(), expected_launches(hier, cfg, proj12[form].cg.iterations)
+        print(f"[12b] {form} projection: {proj12[form].cg.iterations} iterations, relative residual "
+              f"{proj12[form].cg.relative_residual:.3e}; kernel launches {got12}, expected {want12}")
+        require(got12 == want12, f"[12b] {form}: kernel launches differ from the plan")
+        require(proj12[form].cg.converged and proj12[form].cg.relative_residual <= 1e-5,
+                f"[12b] {form} projection did not converge")
+    it_mm, it_sl = proj12["mm"].cg.iterations, proj12["slice"].cg.iterations
+    _, p12 = rel_err(proj12["mm"].pressure, proj12["slice"].pressure)
+    print(f"[12b] iterations mm {it_mm} vs slice {it_sl}; pressure max relative difference {p12:.3e}")
+    require(abs(it_mm - it_sl) <= 1 and p12 <= 1e-3, "[12b] the two forms' projections differ")
+    wall12, ev12 = {form: [] for form in modes}, {form: [] for form in modes}
+    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    for _ in range(3):
+        for form, cfg in modes.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            start.record()
+            res = mgpcg.solve(setup.problem, rhs, config=cfg)
+            stop.record()
+            torch.cuda.synchronize()
+            wall12[form].append(time.perf_counter() - t0)
+            ev12[form].append(start.elapsed_time(stop))
+            require(res.converged, f"[12b] a timed {form} solve did not converge")
+    for form, cfg in modes.items():
+        kept = []
+        with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                           schedule=profiler_schedule(wait=0, warmup=1, active=1),
+                           on_trace_ready=lambda p: kept.append(p.key_averages())) as prof:
+            for _ in range(2):  # the first solve is the profiler's warm-up step
+                reset_counts()
+                res = mgpcg.solve(setup.problem, rhs, config=cfg)
+                torch.cuda.synchronize()
+                prof.step()
+        got12 = read_counts()
+        want12 = expected_launches(hier, cfg, res.iterations)
+        want12["residual"] -= 1  # a solve without the projection's recomputed residual
+        dev_ev = [e for e in kept[0] if getattr(e, "device_type", None) == DeviceType.CUDA
+                  and not e.key.startswith("ProfilerStep")]
+        host_ev = [e for e in kept[0] if getattr(e, "device_type", None) != DeviceType.CUDA]
+        port = ("smooth_chunk_kernel", "cg_step_kernel", "residual_kernel", "sum_partials", "halo_")
+        port_ev = [e for e in dev_ev if any(k in e.key for k in port)]
+        gemm_ev = [e for e in dev_ev if "gemm" in e.key.lower() or "cutlass" in e.key.lower()]
+        n_port, n_gemm = sum(e.count for e in port_ev), sum(e.count for e in gemm_ev)
+        ms_port, ms_gemm = (sum(device_us(e) for e in ev) / 1e3 for ev in (port_ev, gemm_ev))
+        n_all = sum(e.count for e in dev_ev)
+        dev_total = sum(device_us(e) for e in dev_ev) / 1e3
+        launch_calls = [e for e in host_ev if "LaunchKernel" in e.key]
+        aten = sorted((e for e in host_ev if e.key.startswith("aten::")), key=lambda e: -e.count)[:10]
+        print(f"[12b] {form}: best solve {min(wall12[form]) * 1e3:.3f} ms wall, {min(ev12[form]):.3f} ms between "
+              f"CUDA events (each: {', '.join(f'{t:.3f}' for t in ev12[form])}); profiled: {dev_total:.3f} ms of "
+              f"device time in {n_all} device launches and copies per solve, of them {n_port} port kernels "
+              f"({ms_port:.3f} ms), {n_gemm} cuBLAS products ({ms_gemm:.3f} ms), {n_all - n_port - n_gemm} other "
+              f"plain-PyTorch kernels and copies ({dev_total - ms_port - ms_gemm:.3f} ms); "
+              f"host launch calls {', '.join(f'{e.key} {e.count} ({e.self_cpu_time_total / 1e3:.3f} ms)' for e in launch_calls)} "
+              f"[{card}]")
+        print(f"[12b] {form}: host ops by calls per solve: "
+              + ", ".join(f"{e.key} {e.count}" for e in aten))
+        print(f"[12b] {form}: kernel launches {got12}, expected {want12}")
+        require(got12 == want12, f"[12b] {form}: the profiled solve's kernel launches differ from the plan")
+    better = "mm" if min(ev12["mm"]) <= min(ev12["slice"]) else "slice"
+    print(f"[12b] transfer_mode='auto' on the card: mm (solver.mg.use_mm_transfers); this run's best solve: mm "
+          f"{min(ev12['mm']):.3f} ms vs slice {min(ev12['slice']):.3f} ms between CUDA events, "
+          f"{min(wall12['mm']) * 1e3:.3f} vs {min(wall12['slice']) * 1e3:.3f} ms wall: the faster form here is "
+          f"{better}, {'as' if better == 'mm' else 'NOT as'} 'auto' takes [{card}]")
+
+    # [12c] One V-cycle by level in both forms (utils.profiling.vcycle_stage_times).
+    kinds = ("smooth (down)", "residual+restrict", "prolong", "smooth (up)")
+    for form, cfg in modes.items():
+        split = profiling.vcycle_stage_times(hier, rhs, cfg, warmup=1, reps=3)
+        print(f"[12c] {form}: one V-cycle at {setup.expanded_shape} by level, ms per call (mean of 3), each stage "
+              f"ending on a device sync [{card}]:")
+        print(f"[12c]   {'level':<22}" + "".join(f"{k:>20}" for k in kinds))
+        moves = 0.0
+        for lv in range(nlev - 1):
+            row = [1e3 * split.seconds[f"L{lv} {k}"] / split.calls[f"L{lv} {k}"] for k in kinds]
+            moves += row[1] + row[2]
+            print(f"[12c]   L{lv} {str(tuple(hier.levels[lv].shape)):<19}" + "".join(f"{v:>20.4f}" for v in row))
+        coarse_key = f"L{nlev - 1} coarse direct solve"
+        total = 1e3 * sum(split.seconds.values()) / 3
+        print(f"[12c]   {coarse_key}: {1e3 * split.seconds[coarse_key] / split.calls[coarse_key]:.4f} ms; cycle "
+              f"total {total:.4f} ms, of it residual+restrict and prolong {moves:.4f} ms")
+
+    # [12d] The 512^3 splash ([11e]'s scene), single process, both forms in
+    # turns on one setup: iterations, projection seconds, peak memory.
+    ne = 2 * n
+    phi_e, vel_e = sdf.splash_scene((ne, ne, ne), device=dev, dtype=torch.float32)
+    w_e = sdf.open_box_weights((ne, ne, ne), device=dev, dtype=torch.float32)
+    setup_e = free_surface.build_setup(phi_e, w_e, config=config)
+    del phi_e, w_e
+    best_e, peak_e12, res_e = {}, {}, {}
+    for _ in range(2):
+        for form, cfg in modes.items():
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base_e = torch.cuda.memory_allocated()
+            t0 = time.perf_counter()
+            res_e[form] = free_surface.project(setup_e, vel_e, config=cfg)
+            torch.cuda.synchronize()
+            best_e[form] = min(best_e.get(form, float("inf")), time.perf_counter() - t0)
+            peak_e12[form] = (torch.cuda.max_memory_allocated() - base_e) / 2**30
+    for form in modes:
+        print(f"[12d] {form}, {ne}^3 bench splash (window {setup_e.expanded_shape}): {res_e[form].cg.iterations} "
+              f"iterations, relative residual {res_e[form].cg.relative_residual:.3e}; projection best of 2 "
+              f"{best_e[form]:.4f} s; peak device memory {peak_e12[form]:.3f} GiB above the setup [{card}]")
+        require(res_e[form].cg.converged and res_e[form].cg.relative_residual <= 1e-5,
+                f"[12d] the {form} projection did not converge")
+    _, pe = rel_err(res_e["mm"].pressure, res_e["slice"].pressure)
+    print(f"[12d] iterations mm {res_e['mm'].cg.iterations} vs slice {res_e['slice'].cg.iterations}, pressure max "
+          f"relative difference {pe:.3e}; projection mm {best_e['mm']:.4f} s vs slice {best_e['slice']:.4f} s")
+    require(abs(res_e["mm"].cg.iterations - res_e["slice"].cg.iterations) <= 1 and pe <= 1e-3,
+            "[12d] the two forms' 512^3 projections differ")
+    del setup_e, vel_e, res_e
+    torch.cuda.empty_cache()
+
+    # [12e] The fused frame loop (run_fused, phase 9's 4 frames) in both
+    # forms: seconds per frame in turns, twice, and host syncs per frame.
+    per_form, stats12 = {form: [] for form in modes}, {}
+    for _ in range(2):
+        for form, cfg in modes.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            stats12[form] = simulate.run_fused(phi0, vel0, weights, num_frames=frames_n, config=cfg,
+                                               chunk=frames_n)[3]
+            torch.cuda.synchronize()
+            per_form[form].append((time.perf_counter() - t0) / frames_n)
+    for form, cfg in modes.items():
+        _, sites = count_syncs(lambda: simulate.run_fused(phi0, vel0, weights, num_frames=frames_n, config=cfg,
+                                                          chunk=frames_n))
+        its = [int(i) for i in stats12[form]["iterations"]]
+        print(f"[12e] run_fused {form}: {min(per_form[form]):.4f} s per frame at {n}^3, best of 2 in turns (each: "
+              f"{', '.join(f'{t:.4f}' for t in per_form[form])}); {sum(sites.values()) / frames_n:.1f} host syncs "
+              f"per frame; iterations {its} [{card}]")
+    require(all(abs(int(a) - int(b)) <= 1 for a, b in zip(stats12["mm"]["iterations"], stats12["slice"]["iterations"])),
+            "[12e] the two forms' frames differ by more than one iteration")
+    print(f"[12] phase 12 took {time.perf_counter() - t12:.1f} s [{card}]")
+
     src = "geometricmultigridpressuresolver_tpu_torch/csrc/"
     jax_src = "geometricmultigridpressuresolver_tpu/"
     # The band-strip and bf16-field rows are launches of the chunk kernel
@@ -1971,6 +2312,7 @@ def main(argv=None) -> int:
             k.update(tile=list(t.core), active_tile_share=t.active.numel() / n_tiles(t))
         if name in dot_errs:
             k["dot_max_rel_err"] = dot_errs[name]
+    print(json.dumps({"transfers": transfer_rows}))
     print(json.dumps({"kernels": kernels}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -2,9 +2,18 @@
 
 The knobs of ``geometricmultigridpressuresolver_tpu.config.SolverConfig``
 that mean something on the port's path, with the same names and defaults,
-plus `kernel_mode`.  Knobs that exist only for the TPU (Pallas interpret
-mode and tiling, padded kernel views, MXU transfers, setup program
-granularity) are absent on purpose: passing one raises ``TypeError``.
+plus `kernel_mode`.  The JAX package's other knobs have no meaning on the
+card and are absent on purpose (passing one raises ``TypeError``):
+
+  * `pallas_interpret`: the Pallas interpreter; `kernel_mode="torch"` is
+    the port's plain path.
+  * `pallas_block_t`, `pallas_block_y`: the TPU's (8, 128) slab tiling;
+    the CUDA kernels tile by `ops.fused_smoother.CHUNK_TILE`.
+  * `pallas_pad_coarse`, `pallas_pad_min_cells`, `pallas_pad_max_ratio`:
+    padded views that meet the TPU kernel's slab shapes; the chunk kernel
+    takes any shape.
+  * `setup_fusion`: how many XLA programs the build compiles to; the
+    port's build runs eagerly.
 
 One default differs: `solve_dtype` is float64, the reference's all-double
 solve.  The JAX package resolves its default from ``jax_enable_x64``; torch
@@ -22,6 +31,7 @@ _EW_DTYPES = (None, torch.bfloat16, torch.float32, torch.float64)
 _FIELD_DTYPES = (None, torch.bfloat16)
 KERNEL_MODES = ("auto", "torch", "cuda")
 ADVECTION_SCHEMES = ("semi_lagrangian", "upwind")
+TRANSFER_MODES = ("auto", "mm", "slice")
 INTERIOR_SMOOTHERS = (None, "chebyshev")
 
 
@@ -89,6 +99,13 @@ class SolverConfig:
       advection: "semi_lagrangian" (trilinear backtrace) or "upwind"
         (first-order stencil) for the frame loop (`models/simulate.py`).
       advect_substeps: sub-Euler steps of the upwind scheme.
+      transfer_mode: the V-cycle's restriction and prolongation.  "mm" runs
+        each as three per-axis matrix products (`ops.transfer.restrict_mm`,
+        `prolong_add_mm`: IEEE products, exactly adjoint by construction),
+        "slice" as shifted slices (`restrict`, `prolong_add`); "auto" takes
+        the products on a CUDA device and the slices on the CPU, as the JAX
+        package takes them on the TPU and not elsewhere
+        (`solver.mg.use_mm_transfers`).
     """
 
     solve_dtype: torch.dtype = torch.float64
@@ -117,6 +134,7 @@ class SolverConfig:
     window_slack: int = 1
     advection: str = "semi_lagrangian"
     advect_substeps: int = 4
+    transfer_mode: str = "auto"
 
     def __post_init__(self):
         if self.kernel_mode not in KERNEL_MODES:
@@ -140,6 +158,10 @@ class SolverConfig:
             raise ValueError(
                 f"config.interior_smoother={self.interior_smoother!r}; expected one of "
                 f"{INTERIOR_SMOOTHERS}"
+            )
+        if self.transfer_mode not in TRANSFER_MODES:
+            raise ValueError(
+                f"config.transfer_mode={self.transfer_mode!r}; expected one of {TRANSFER_MODES}"
             )
         if self.advection not in ADVECTION_SCHEMES:
             raise ValueError(

@@ -7,11 +7,53 @@ reproducible from run to run, as the reference's per-tile partial sums are.
 Across ranks, `ranks` (a `parallel.distributed.Ranks`) turns a rank's
 partial over its block into the total: the partials are gathered and
 added in rank order (the max likewise), so every rank gets the same bits.
+
+`ieee_products` scopes the card's matrix products to IEEE arithmetic: the
+JAX package asks for ``precision=HIGHEST`` on each product, torch has only
+process-wide settings.
 """
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
+
+
+def _bf16_reduction():
+    m = torch.backends.cuda.matmul
+    try:
+        return (m.allow_bf16_reduced_precision_reduction, m.allow_bf16_reduced_precision_reduction_split_k)
+    except AttributeError:  # torch without the split-K setting
+        return m.allow_bf16_reduced_precision_reduction
+
+
+@contextlib.contextmanager
+def ieee_products():
+    """Matrix products inside the block run in IEEE fp32 (no TF32) and bf16
+    products reduce in fp32 (no reduced-precision split-K), whatever the
+    caller set with ``torch.backends.cuda.matmul.allow_tf32``,
+    ``fp32_precision`` or ``torch.set_float32_matmul_precision``; the
+    caller's settings are back unchanged after it.  Only the per-backend
+    setting is touched (the legacy getters raise while the two APIs
+    disagree, and cuBLAS reads the per-backend one)."""
+    m = torch.backends.cuda.matmul
+    new_api = hasattr(m, "fp32_precision")
+    tf32 = m.fp32_precision if new_api else m.allow_tf32
+    bf16 = _bf16_reduction()
+    if new_api:
+        m.fp32_precision = "ieee"
+    else:
+        m.allow_tf32 = False
+    m.allow_bf16_reduced_precision_reduction = False
+    try:
+        yield
+    finally:
+        if new_api:
+            m.fp32_precision = tf32
+        else:
+            m.allow_tf32 = tf32
+        m.allow_bf16_reduced_precision_reduction = bf16
 
 
 def dot(x: torch.Tensor, y: torch.Tensor, solvable: torch.Tensor, ranks=None) -> torch.Tensor:

@@ -1,13 +1,17 @@
 """Inter-level transfers: full-weighting restriction and 4x trilinear
-prolongation (the slice form of
-``geometricmultigridpressuresolver_tpu.ops.transfer``).
+prolongation, in the JAX package's two forms
+(``geometricmultigridpressuresolver_tpu.ops.transfer``): shifted slices
+(`restrict`, `prolong_add`) and per-axis matrix products (`restrict_mm`,
+`prolong_add_mm`; `solver.mg.use_mm_transfers` picks one).
 
 Per axis, restriction is y[c] = sum_k w[k] x[2c-1+k] with w = (1/8, 3/8,
 3/8, 1/8), and prolongation is twice its transpose, so the pair stays
-adjoint to rounding.  A coarse level may carry trailing EXTERIOR lane
-padding (`ops.domain.coarse_lane_pad`): restriction zero-pads its natural
+adjoint to rounding (the matrix form exactly: it uses the transposed
+matrix).  A coarse level may carry trailing EXTERIOR lane padding
+(`ops.domain.coarse_lane_pad`): restriction zero-pads its natural
 half-resolution result to the coarse shape and prolongation reads only the
-natural region -- the exact transpose of each other.
+natural region -- the exact transpose of each other (in the matrix form,
+the padding's columns of the matrix are zero).
 
 Both assume fields are zero outside the solvable set and mask their output
 to the destination level's solvable set.
@@ -19,15 +23,33 @@ transfer.py:90-110, :132-157).  The caller hands them the block grown by
 a one-cell `margin` on those axes (a one-cell halo exchange, or a slice
 of a replicated coarse grid with zeros past its edge); an axis with a
 margin is not zero-padded, and the result covers the block's own cells.
-Every output cell is formed from the same inputs in the same order as on
-one device, so a rank's block is bit-equal to that block of the whole
-transfer.
+In the slice form every output cell is formed from the same inputs in the
+same order as on one device, so a rank's block is bit-equal to that block
+of the whole transfer.  In the matrix form the local matrix along a
+margin axis is the whole axis's cut in global coordinates (it is shift
+invariant: R[i, c] = w[i - 2c] for restriction, P[f, k] = 2 w[f - 2k + 3]
+for prolongation), so a rank's block equals the whole transfer's to the
+rounding of the products.
+
+The matrix form contracts each axis where it lies, so every product's
+output is contiguous and no axis is moved: axis 0 as (n_out x n_in) @
+x.view(n_in, Y*Z), axis 1 as a broadcast batched product over x, axis 2
+as x.view(X*Y, n_in) @ (n_in x n_out), in the JAX package's axis order
+(0, 1, 2).  The products are IEEE (`blas.ieee_products`), as the JAX
+package's ``precision=HIGHEST``; the matrices take the field's dtype and
+are cached per shape, device and dtype.
 """
 
 from __future__ import annotations
 
+import functools
+from typing import Callable, NamedTuple
+
+import numpy as np
 import torch
 import torch.nn.functional as F
+
+from geometricmultigridpressuresolver_tpu_torch.ops import blas
 
 _R_WEIGHTS = (1.0 / 8.0, 3.0 / 8.0, 3.0 / 8.0, 1.0 / 8.0)
 
@@ -116,3 +138,116 @@ def prolong_add(
         coarse_x = coarse_x[tuple(slice(0, s) for s in natural)]
     up = prolong(coarse_x, margin)
     return torch.where(fine_solvable, fine_x + up, fine_x)
+
+
+@functools.lru_cache(maxsize=None)
+def _band(rows: int, cols: int, shift: int, live: int) -> np.ndarray:
+    """(rows, cols) float64 matrix M[r, c] = w[r - 2c + shift] for the
+    columns c < live, zero elsewhere."""
+    m = np.zeros((rows, cols), dtype=np.float64)
+    for c in range(live):
+        for k, w in enumerate(_R_WEIGHTS):
+            r = 2 * c - shift + k
+            if 0 <= r < rows:
+                m[r, c] = w
+    return m
+
+
+def restrict_matrix(n_fine: int, n_coarse: int) -> np.ndarray:
+    """(n_fine, n_coarse) separable restriction matrix R (JAX
+    `_restrict_matrix_np`): R[2c-1+k, c] = w[k]; the columns past the
+    natural half (the coarse lane padding) stay zero.  Prolongation along
+    the axis is 2 R^T."""
+    return _band(n_fine, n_coarse, 1, n_fine // 2)
+
+
+@functools.lru_cache(maxsize=256)
+def _matrix(rows: int, cols: int, shift: int, live: int, scale: float, device, dtype) -> torch.Tensor:
+    """`scale` * `_band(...)` as a tensor, made once per device and dtype."""
+    return torch.as_tensor(scale * _band(rows, cols, shift, live), dtype=dtype, device=device)
+
+
+def restrict_axis_matrix(x: torch.Tensor, axis: int, n_out: int, margin: int) -> torch.Tensor:
+    """(n_out, n_in) restriction matrix R^T of `x`'s `axis`, which carries
+    a `margin`-cell margin on both sides (a transposed view)."""
+    n_in = x.shape[axis]
+    return _matrix(n_in, n_out, 1 - margin, (n_in - 2 * margin) // 2, 1.0, x.device, x.dtype).t()
+
+
+def prolong_axis_matrix(n_fine: int, x: torch.Tensor, axis: int, margin: int) -> torch.Tensor:
+    """(n_fine, n_in) prolongation matrix 2 R^T of `x`'s (coarse) `axis`,
+    which carries a `margin`-cell margin on both sides."""
+    return _matrix(n_fine, x.shape[axis], 1 + 2 * margin, n_fine // 2 + 2 * margin, 2.0, x.device, x.dtype)
+
+
+def axis_product(x: torch.Tensor, a: torch.Tensor, axis: int) -> torch.Tensor:
+    """x with its `axis` (length n_in) replaced by a @ that axis, for a
+    (n_out, n_in) matrix `a`; the result is contiguous."""
+    shape = list(x.shape)
+    n_in, shape[axis] = shape[axis], a.shape[0]
+    if axis == 0:
+        return torch.matmul(a, x.reshape(n_in, -1)).view(shape)
+    if axis == 1:
+        return torch.matmul(a, x)
+    return torch.matmul(x.reshape(-1, n_in), a.t()).view(shape)
+
+
+def _restrict_products(fine: torch.Tensor, out_shape, margin) -> torch.Tensor:
+    out = fine
+    with blas.ieee_products():
+        for axis in range(3):
+            r = restrict_axis_matrix(out, axis, int(out_shape[axis]), int(margin[axis]))
+            out = axis_product(out, r, axis)
+    return out
+
+
+def restrict_mm(fine: torch.Tensor, coarse_solvable: torch.Tensor) -> torch.Tensor:
+    """Full-weighting restriction as three per-axis matrix products, masked
+    to the coarse solvable set (the coarse lane padding comes from the
+    matrix's zero columns)."""
+    out = _restrict_products(fine, coarse_solvable.shape, (0, 0, 0))
+    return torch.where(coarse_solvable, out, 0.0)
+
+
+def restrict_natural_mm(fine: torch.Tensor, margin=(0, 0, 0)) -> torch.Tensor:
+    """`restrict_natural` as matrix products: the unmasked half-resolution
+    restriction of `fine`, which carries a one-cell margin on the axes
+    where `margin` is 1."""
+    out_shape = tuple((n - 2 * int(m)) // 2 for n, m in zip(fine.shape, margin))
+    return _restrict_products(fine, out_shape, margin)
+
+
+def prolong_add_mm(
+    fine_x: torch.Tensor, coarse_x: torch.Tensor, fine_solvable: torch.Tensor, margin=(0, 0, 0)
+) -> torch.Tensor:
+    """fine_x += 4 * trilerp(coarse_x) through the transposed restriction
+    matrices (2 R^T per axis), masked to the fine solvable set: exactly
+    adjoint to `restrict_mm`.  `coarse_x` carries a one-cell margin on the
+    axes where `margin` is 1 (and may carry its lane padding on the
+    others).  The x4 and the add ride the last product (exact x4, one
+    rounding of fine_x + 4 up, as the JAX package rounds it)."""
+    up = coarse_x
+    nf = fine_x.shape
+    with blas.ieee_products():
+        for axis in (0, 1):
+            up = axis_product(up, prolong_axis_matrix(nf[axis], up, axis, int(margin[axis])), axis)
+        p = prolong_axis_matrix(nf[2], up, 2, int(margin[2]))
+        out = torch.addmm(fine_x.reshape(-1, nf[2]), up.reshape(-1, up.shape[2]), p.t(), alpha=4).view(nf)
+    return torch.where(fine_solvable, out, fine_x)
+
+
+class Form(NamedTuple):
+    """One form of the transfers: whole-level restriction (masked, lane
+    padded), the natural restriction of a block with its margin, and the
+    prolong-add."""
+
+    restrict: Callable
+    restrict_natural: Callable
+    prolong_add: Callable
+
+
+def form(mm: bool) -> Form:
+    """The matrix-product form of the transfers, or the slice form."""
+    if mm:
+        return Form(restrict_mm, restrict_natural_mm, prolong_add_mm)
+    return Form(restrict, restrict_natural, prolong_add)

@@ -227,7 +227,11 @@ def project_job(mesh, n: int = 32, bench: bool = False, tolerance: float = 1e-7,
         "project_s": seconds,
     }
     if print_line:
-        print(json.dumps(out), flush=True)
+        # One write of the whole line: the ranks share the launcher's
+        # stdout, and print's separate write of the newline (unbuffered
+        # streams) lets another rank's line land between the two.
+        sys.stdout.write(json.dumps(out) + "\n")
+        sys.stdout.flush()
     if fields:
         out["levels"] = [{f: _numpy(getattr(c, f)) for f in c._fields} for c in hier.levels]
         out["fine"] = {f: _numpy(getattr(setup.problem.fine, f)) for f in setup.problem.fine._fields}

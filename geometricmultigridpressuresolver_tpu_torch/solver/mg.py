@@ -16,6 +16,8 @@
   * level_flags: with a block mesh (`parallel.mesh.BlockMesh`) or a mesh
     of ranks (`parallel.mesh.DistMesh`), which levels run the block-mesh
     smoother (`parallel.fused_sharded`).
+  * use_mm_transfers: which form of the transfers `v_cycle` runs
+    (`config.transfer_mode`): per-axis matrix products or shifted slices.
   * coarse_system_device: the coarsest level's identity-padded dense
     inverse assembled and inverted on the level's device (JAX
     `_coarse_system_traced`), for the frozen-geometry frame loop
@@ -42,7 +44,10 @@ into the whole coarse grid on every rank (`distributed.gather_blocks`);
 on the way up a rank prolongs from its slice of the whole coarse grid
 with a one-cell margin.  The sharded levels come first and share their
 split axes (checked).  Every decision comes from global shapes and the
-configuration, so every rank takes the same exchanges.
+configuration, so every rank takes the same exchanges.  The transfers take
+the form `use_mm_transfers` picks on every kind of level: whole, a block
+mesh's global arrays, and a rank's blocks with their margins (the halos
+and gathers are the same in both forms).
 
 `config.interior_smoother="chebyshev"` flags every level "plain": the
 smoothing block is `chebyshev_block` in plain PyTorch and the downstroke's
@@ -314,10 +319,22 @@ def coarse_solve(hier: MGHierarchy, b: torch.Tensor) -> torch.Tensor:
     if hier.coarse_chol.shape[0] > 0:
         xv = torch.cholesky_solve(bv[:, None], hier.coarse_chol).squeeze(1)
     else:
-        xv = torch.matmul(hier.coarse_minv, bv)
+        with blas.ieee_products():  # JAX mg.py:540: precision=HIGHEST
+            xv = torch.matmul(hier.coarse_minv, bv)
     flat = b.new_zeros(ncell + 1)
     flat.index_copy_(0, dofs, xv)
     return flat[:ncell].reshape(b.shape)
+
+
+def use_mm_transfers(config: SolverConfig, device) -> bool:
+    """Whether the V-cycle's transfers run as matrix products
+    (`transfer.restrict_mm` / `prolong_add_mm`) on `device`: "mm" and
+    "slice" win as given; "auto" takes the products on a CUDA device and
+    the slices elsewhere -- the JAX package's rule (`_use_mm_transfers`,
+    products on the TPU) with the card in the TPU's place."""
+    if config.transfer_mode != "auto":
+        return config.transfer_mode == "mm"
+    return torch.device(device).type == "cuda"
 
 
 def smoothed_levels(hier: MGHierarchy) -> range:
@@ -462,7 +479,8 @@ def v_cycle(
 
     Without `use_initial_guess` the cycle starts from x = 0 and `x` may be
     None.  The single-device smoothed levels store their fields as
-    `field_dtype` (the transfers run in torch on those fields); sharded
+    `field_dtype` (the transfers, in the form `use_mm_transfers` picks,
+    run in torch on those fields); sharded
     levels (with a block `mesh`, `level_flags`), the coarse solve and the
     returned x are in the hierarchy's dtype.  `block_lists` must come from
     `hierarchy_block_lists` with the same mesh.  Across ranks (a
@@ -499,14 +517,16 @@ def v_cycle(
     def split(level):
         return grid_split(mesh, shapes[level]) if flags[level] == "sharded" else (False,) * 3
 
+    transfers = transfer.form(use_mm_transfers(config, b.device))
+
     def restrict(level, r):
         # Across ranks a sharded level restricts its block grown by a
         # one-cell halo, and a whole coarse level gathers the blocks.
         coarse = hier.levels[level + 1].solvable
         if not (ranks and flags[level] == "sharded"):
-            return transfer.restrict(r, coarse)
+            return transfers.restrict(r, coarse)
         g1 = halo.geometry(mesh, shapes[level], depth=1)
-        out = transfer.restrict_natural(halo.exchange_halos(r, g1, mesh), g1.halo + (0,))
+        out = transfers.restrict_natural(halo.exchange_halos(r, g1, mesh), g1.halo + (0,))
         if flags[level + 1] != "sharded":
             natural = tuple(n // 2 for n in shapes[level])
             out = distributed.gather_blocks(out, mesh, natural, split(level))
@@ -518,7 +538,7 @@ def v_cycle(
         # level, or a slice of a whole one (zeros past its edge).
         c = hier.levels[level]
         if not (ranks and flags[level] == "sharded"):
-            return transfer.prolong_add(xl, coarse_x, c.solvable)
+            return transfers.prolong_add(xl, coarse_x, c.solvable)
         margin = halo.geometry(mesh, shapes[level], depth=1).halo + (0,)
         if flags[level + 1] == "sharded":
             coarse_x = halo.exchange_halos(coarse_x, halo.geometry(mesh, shapes[level + 1], depth=1), mesh)
@@ -528,7 +548,7 @@ def v_cycle(
             coarse_x = padded[tuple(
                 slice(s.start // 2, s.stop // 2 + 2 * m) if m else slice(None) for s, m in zip(own, margin)
             )]
-        return transfer.prolong_add(xl, coarse_x, c.solvable, margin)
+        return transfers.prolong_add(xl, coarse_x, c.solvable, margin)
 
     def finish(out):
         # The caller gets the hierarchy dtype whatever the field storage.

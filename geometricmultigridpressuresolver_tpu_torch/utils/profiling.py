@@ -228,9 +228,11 @@ def vcycle_stage_times(
     `mg.hierarchy_block_lists` entry (the chunk kernel on the card), or the
     plain Chebyshev block where `mg.level_flags` says "plain".  The
     downstroke's residual is formed apart -- `fused_cg.residual` over the
-    level's tiles, then `transfer.restrict` -- where production fuses it
+    level's tiles, then the restriction -- where production fuses it
     into the downstroke's last chunk, so "smooth (down)" and "residual+
-    restrict" can be read apart.
+    restrict" can be read apart.  The transfers are the form the cycle
+    runs (`mg.use_mm_transfers`), where the JAX package's profiler times
+    the slice form whatever its cycle runs; the stage names are JAX's.
     """
     if config is None:
         config = SolverConfig()
@@ -239,6 +241,7 @@ def vcycle_stage_times(
     flags = mg_mod.level_flags(hier, config)
     vdt = mg_mod.level_field_dtypes(hier, config, flags)
     blocks = mg_mod.hierarchy_block_lists(hier, config)
+    transfers = transfer.form(mg_mod.use_mm_transfers(config, b.device))
 
     def smooth(level, x, rhs, forward):
         c = hier.levels[level]
@@ -269,14 +272,14 @@ def vcycle_stage_times(
             with timer.stage(f"L{level} residual+restrict"):
                 r = residual(level, sols[level], rhs[level])
                 rhs[level + 1] = sync(
-                    transfer.restrict(r, hier.levels[level + 1].solvable).to(vdt[level + 1])
+                    transfers.restrict(r, hier.levels[level + 1].solvable).to(vdt[level + 1])
                 )
         with timer.stage(f"L{nlev - 1} coarse direct solve"):
             sols[nlev - 1] = sync(mg_mod.coarse_solve(hier, rhs[nlev - 1]))
         for level in range(nlev - 2, -1, -1):
             c = hier.levels[level]
             with timer.stage(f"L{level} prolong"):
-                x = sync(transfer.prolong_add(sols[level], sols[level + 1].to(vdt[level]), c.solvable))
+                x = sync(transfers.prolong_add(sols[level], sols[level + 1].to(vdt[level]), c.solvable))
             with timer.stage(f"L{level} smooth (up)"):
                 sols[level] = sync(smooth(level, x, rhs[level], False))
         if rep >= warmup:

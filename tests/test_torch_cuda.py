@@ -826,3 +826,29 @@ def test_two_ranks_on_the_card_partitioned_projection(device):
         np.testing.assert_allclose(kernel["pressure"], plain["pressure"], rtol=0, atol=1e-12)
         for a in range(3):
             np.testing.assert_allclose(kernel["velocity"][a], plain["velocity"][a], rtol=0, atol=1e-12)
+
+
+def test_mm_transfers_ieee_with_tf32_on(device):
+    """With TF32 switched on by the caller, the fp32 matrix-form transfers
+    stay within 1e-6 (relative to the largest value) of the slice form --
+    TF32's ~1e-3 would fail -- and the caller's setting is back after each
+    call.  Shapes of the 256^3 bench's L0 -> L1 (lane-padded coarse z)."""
+    from geometricmultigridpressuresolver_tpu_torch.ops import transfer
+
+    gen = torch.Generator(device=device).manual_seed(7)
+    fine_shape, coarse_shape = (288, 256, 384), (144, 128, 256)
+    fine_solv = torch.rand(fine_shape, generator=gen, device=device) < 0.7
+    coarse_solv = torch.rand(coarse_shape, generator=gen, device=device) < 0.7
+    coarse_solv[:, :, 192:] = False
+    fine = torch.where(fine_solv, torch.randn(fine_shape, generator=gen, device=device), 0.0)
+    coarse = torch.where(coarse_solv, torch.randn(coarse_shape, generator=gen, device=device), 0.0)
+    saved = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        r_mm = transfer.restrict_mm(fine, coarse_solv)
+        p_mm = transfer.prolong_add_mm(fine, coarse, fine_solv)
+        assert torch.backends.cuda.matmul.allow_tf32
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = saved
+    assert _rel(r_mm, transfer.restrict(fine, coarse_solv)) <= 1e-6
+    assert _rel(p_mm, transfer.prolong_add(fine, coarse, fine_solv)) <= 1e-6

@@ -47,6 +47,7 @@ from geometricmultigridpressuresolver_tpu_torch.solver import mg, mgpcg
 torch.set_num_threads(1)
 CPU = torch.device("cpu")
 TIMEOUT = 240.0
+MM = dict(transfer_mode="mm")
 
 
 def _jax():
@@ -126,11 +127,15 @@ def world4_job(mesh, grid, simple16, scenes):
     return out
 
 
-def world2_job(mesh, problems):
+def world2_job(mesh, problems, mm=()):
     """The (2, 1, 1) world: (e) each labelled domain of `problems` solved
-    with `mesh=`."""
-    return {name: dryrun.solve_job(mesh, *args, config_kwargs=dict(tolerance=1e-8))
-            for name, args in problems.items()}
+    with `mesh=`, and those named in `mm` once more with the matrix-form
+    transfers (under "<name>_mm")."""
+    out = {name: dryrun.solve_job(mesh, *args, config_kwargs=dict(tolerance=1e-8))
+           for name, args in problems.items()}
+    for name in mm:
+        out[f"{name}_mm"] = dryrun.solve_job(mesh, *problems[name], config_kwargs=dict(tolerance=1e-8, **MM))
+    return out
 
 
 # ---- (a)-(c), (h): no world ---------------------------------------------------------
@@ -284,7 +289,9 @@ def worlds():
     sine fixture, the port's single-process solves of both fixtures, and
     JAX's single-device setup and projection of the 32^3 splash (no level
     splits on (2, 2, 1)) and of the 40^3 one (window (48, 48, 48): L0 runs
-    sharded), with the port's single-process projection at 40^3."""
+    sharded), with the port's single-process projection at 40^3; with
+    transfer_mode="mm", the port's single process on the 44^3 scene and the
+    sine fixture, which the worlds also run with it."""
     from concurrent.futures import ThreadPoolExecutor
 
     j = _jax()
@@ -314,10 +321,11 @@ def worlds():
     scenes[44] = (dict(phi=phi44.numpy(), velocity=tuple(v.numpy() for v in velocity44),
                        weights=tuple(w.numpy() for w in sdf.open_box_weights((44, 44, 44), device="cpu"))),
                   SolverConfig(tolerance=1e-7, coarse_dof_target=300))
+    scenes["44mm"] = (scenes[44][0], SolverConfig(tolerance=1e-7, coarse_dof_target=300, **MM))
     with ThreadPoolExecutor(2) as ex:
         w4 = ex.submit(_launch, f"{__name__}:world4_job", 4, grid=grid,
                        simple16=(labels, mg_levels, rhs16), scenes=scenes)
-        w2 = ex.submit(_launch, f"{__name__}:world2_job", 2, problems=problems)
+        w2 = ex.submit(_launch, f"{__name__}:world2_job", 2, problems=problems, mm=("sine32",))
         jcfg = j["Config"](tolerance=1e-8)
         jproblem = j["mgpcg"].build_problem(labels, None, mg_levels, jcfg)
         jmesh = j["mesh"].make_mesh(8)
@@ -333,6 +341,10 @@ def worlds():
         for name, (lab, w, lev, rhs) in problems.items():
             problem = mgpcg.build_problem(lab, w, lev, cfg, device="cpu")
             single[name] = (int(problem.fine.solvable.sum()), mgpcg.solve(problem, torch.from_numpy(rhs), config=cfg))
+        lab, w, lev, rhs = problems["sine32"]
+        cfg_mm = SolverConfig(tolerance=1e-8, **MM)
+        single["sine32_mm"] = mgpcg.solve(mgpcg.build_problem(lab, w, lev, cfg_mm, device="cpu"),
+                                          torch.from_numpy(rhs), config=cfg_mm)
         jcfg7 = j["Config"](tolerance=1e-7)
         splash = {}
         for name in (32, 40, "solid"):
@@ -341,7 +353,7 @@ def worlds():
             splash[name] = (jsetup, j["fs"].project(jsetup, sc["velocity"], sc.get("solid_velocity"),
                                                      sc.get("old_pressure"), config=jcfg7))
         port = {}
-        for name in (40, 44):
+        for name in (40, 44, "44mm"):
             sc, cfg = scenes[name]
             setup = free_surface.build_setup(sc["phi"], sc["weights"], config=cfg, device="cpu")
             port[name] = (setup, free_surface.project(setup, sc["velocity"], config=cfg))
@@ -487,6 +499,28 @@ def test_four_rank_l1_split_bit_identical(worlds):
         np.testing.assert_allclose(res["pressure"], want.pressure.numpy(), rtol=0, atol=1e-12)
         for a in range(3):
             np.testing.assert_allclose(res["velocity"][a], want.velocity[a].numpy(), rtol=0, atol=1e-12)
+
+
+def test_mm_transfers_across_ranks_match_single_process(worlds):
+    """The matrix-form transfers on the ranks' blocks with their one-cell
+    margins: the 44^3 projection on (2, 2, 1) (L0-L2 sharded: restriction
+    between sharded levels through the halos and into the whole coarsest
+    level through the gather, prolongation from a halo and from a slice of
+    the whole level) and the 32^3 sine solve on (2, 1, 1) (L0 sharded):
+    iterations equal to the single process with transfer_mode="mm", the
+    pressure (x) within 1e-10."""
+    want = worlds["port"]["44mm"][1]
+    for res in (r["44mm"] for r in worlds["w4"]):
+        assert res["flags"] == ["sharded", "sharded", "sharded", "single"]
+        assert res["converged"] and res["iterations"] == want.cg.iterations
+        np.testing.assert_allclose(res["pressure"], want.pressure.numpy(), rtol=0, atol=1e-10)
+    single = worlds["single"]["sine32_mm"]
+    x = np.zeros(worlds["problems"]["sine32"][0].shape)
+    for res in (r["sine32_mm"] for r in worlds["w2"]):
+        assert res["flags"][0] == "sharded"
+        assert res["converged"] and res["iterations"] == single.iterations
+        x[res["slices"]] = res["x"]
+    np.testing.assert_allclose(x, single.x.numpy(), rtol=0, atol=1e-10)
 
 
 @pytest.mark.parametrize("n", [40, 44])

@@ -3,7 +3,8 @@
 The port must import and run a small projection, two fused frames and a
 checkpoint with JAX blocked, must not
 import Triton or start nvcc at import time, must refuse the JAX package's
-TPU-only knobs, and must refuse kernel_mode="cuda" on CPU tensors.
+knobs that have no meaning on the card, and must refuse kernel_mode="cuda"
+on CPU tensors.
 """
 
 import re
@@ -82,8 +83,7 @@ def test_no_jax_import_in_port_sources():
     "knob, value",
     [
         ("pallas_interpret", True), ("pallas_block_t", 32), ("pallas_block_y", 48),
-        ("pallas_pad_coarse", True), ("transfer_mode", "mm"),
-        ("setup_fusion", "fused"),
+        ("pallas_pad_coarse", True), ("setup_fusion", "fused"),
     ],
 )
 def test_config_refuses_tpu_only_knobs(knob, value):
@@ -100,6 +100,7 @@ def test_config_refuses_tpu_only_knobs(knob, value):
         ("mg_field_dtype", None, torch.bfloat16, torch.float32),
         ("advection", "semi_lagrangian", "upwind", "maccormack"),
         ("interior_smoother", None, "chebyshev", "jacobi"),
+        ("transfer_mode", "auto", "mm", "bad"),
     ],
 )
 def test_config_accepts_ported_knobs(knob, default, good, bad):
@@ -111,6 +112,16 @@ def test_config_accepts_ported_knobs(knob, default, good, bad):
     assert getattr(SolverConfig(**{knob: good}), knob) == good
     with pytest.raises(ValueError):
         SolverConfig(**{knob: bad})
+
+
+@pytest.mark.parametrize("mode, device, want", [
+    ("auto", "cpu", False), ("auto", "cuda", True), ("mm", "cpu", True), ("slice", "cuda", False),
+])
+def test_transfer_mode_resolves_by_device(mode, device, want):
+    """Explicit modes win; "auto" is the slice form on a CPU device (as the
+    JAX package's off the TPU) and the matrix form on a CUDA device (the
+    rule reads the device's type; no card is touched)."""
+    assert mg.use_mm_transfers(SolverConfig(transfer_mode=mode), torch.device(device)) is want
 
 
 def test_frame_loop_knob_defaults_match_jax():

@@ -6,7 +6,8 @@ operators in the same order, fp64 on the CPU), agree with the JAX
 package's `instrumented_solve` within 1e-10 (max abs, on a pressure of
 order 1) with equal iterations, and count one "matvec" per iteration.
 `StageTimes.report()` prints the JAX package's text for the same entries;
-`vcycle_stage_times` times the JAX package's stages on the same hierarchy;
+`vcycle_stage_times` times the JAX package's stages on the same hierarchy,
+with the transfers the configuration picks;
 `trace` writes a Chrome trace.
 """
 
@@ -110,6 +111,40 @@ def test_vcycle_stage_names_match_jax():
     got = profiling.vcycle_stage_times(hier, torch.from_numpy(b), SolverConfig(), warmup=1, reps=2)
     assert sorted(got.seconds) == sorted(want.seconds)
     assert all(n == 2 for n in got.calls.values())
+
+
+def test_vcycle_stage_times_run_the_configured_transfers(monkeypatch):
+    """Under transfer_mode="mm" the stage profiler times the matrix form,
+    the transfers `mg.v_cycle` runs (the slice form never runs), under the
+    stage names of the slice-form run (JAX's, above)."""
+    from geometricmultigridpressuresolver_tpu_torch.ops import transfer
+
+    labels, _, _, mg_levels = jax_diag.expand(jax_diag.build_simple_domain(16))
+    labels = np.asarray(labels)
+    hier = mg.build_hierarchy(labels, None, mg_levels, SolverConfig(), device="cpu")
+    b = torch.from_numpy(np.where(labels >= 2, np.random.default_rng(5).standard_normal(labels.shape), 0.0))
+    names = sorted(profiling.vcycle_stage_times(hier, b, SolverConfig(), warmup=0, reps=1).seconds)
+    calls = {"restrict_mm": 0, "prolong_add_mm": 0}
+
+    def counted(name):
+        fn = getattr(transfer, name)
+
+        def wrapper(*args, **kwargs):
+            calls[name] += 1
+            return fn(*args, **kwargs)
+
+        return wrapper
+
+    def refused(*args, **kwargs):
+        raise AssertionError("the slice form ran under transfer_mode='mm'")
+
+    for name in calls:
+        monkeypatch.setattr(transfer, name, counted(name))
+    monkeypatch.setattr(transfer, "restrict", refused)
+    monkeypatch.setattr(transfer, "prolong_add", refused)
+    got = profiling.vcycle_stage_times(hier, b, SolverConfig(transfer_mode="mm"), warmup=1, reps=2)
+    assert sorted(got.seconds) == names
+    assert calls == dict.fromkeys(calls, 3 * (hier.num_levels - 1))
 
 
 def test_stage_timer_sync_and_disabled():
