@@ -59,9 +59,10 @@ Phases (any failure exits non-zero and prints no result line):
      at 256^3 in phase 7's configuration, launch counts exact, iterations
      and fields against phase 7's run(); seconds per frame of run() and
      run_fused in turns, twice; the host syncs per frame of each path
-     (torch.cuda.set_sync_debug_mode); at frame 1's geometry the coarse
-     system built on the card against the host's, and the setup's host
-     coarse factorization against the on-card one, timed;
+     (torch.cuda.set_sync_debug_mode); at frame 1's geometry run_fused's
+     coarse system (coarse_system_device) against the host path
+     (coarse_system), the two timed, and the setup's own coarse inverse
+     (coarse_system_card) bit-equal to run_fused's;
  10. the reference's test node (diagnostics.py) at its scene's gridSize
      128 (a 256^3 window, 6 levels, fp64), launch counts exact in each
      block: the CG block against the host's assembled-matrix oracle, again
@@ -119,6 +120,21 @@ Phases (any failure exits non-zero and prints no result line):
      peak memory); [12e] run_fused's 4 frames in both forms (seconds and
      host syncs per frame).  Phase 8 also times one core scatter beside its
      bounds.
+ 13. the coarsest level factored on the card (fp32 on the card: an inverse
+     up to 4096 bucketed DOFs, a Cholesky factor above, every setup path):
+     [13a] on the bench hierarchy, _finish_hierarchy's card path against
+     the host path (coarse_system, fp64 numpy) in turns, best of 3, with
+     their host syncs (the card path: exactly one), the card inverse
+     against the host's fp64 inverse rounded to fp32 (and coarse_solve of
+     a random vector), two card builds and phase 3's setup bit-equal;
+     [13b] the bench scene capped where the coarsest bucket lies in
+     (4096, 16384]: the Cholesky branch taken, its info read off the hot
+     path, the factor against np.linalg.cholesky in fp64, coarse_solve and
+     the projection against the host factor's (iterations +-1, pressure
+     1e-3); [13c] the 256^3 and 512^3 projections against the same setups
+     with the host path's inverse swapped in; [13d] run() over phase 7's
+     frames, from phase 9's runs in turns with run_fused: seconds per frame
+     by stage and host syncs per frame.
 Every kernel's entry in the kernels JSON has its launches on its path (and
 on phase 10's blocks, `launches_test_node`, and per rank of [11b],
 `launches_distributed`), its
@@ -200,7 +216,7 @@ def count_syncs(fn):
             torch.cuda.set_sync_debug_mode("default")
     sites = collections.Counter(
         f"{w.filename.split('geometricmultigridpressuresolver_tpu_torch/')[-1]}:{w.lineno}"
-        for w in caught if "synchroniz" in str(w.message)
+        for w in caught if "called a synchronizing" in str(w.message)
     )
     return out, sites
 
@@ -346,6 +362,33 @@ def solvable_field(labels, seed: int):
     x = np.random.default_rng(seed).standard_normal(labels.shape)
     x[labels < int(CellLabel.INTERIOR)] = 0.0
     return x
+
+
+def window_levels(phi, s, cfg):
+    """Setup `s`'s levels, capping flags and level labels rebuilt from the
+    liquid SDF `phi` as `free_surface.build_setup` builds them (the window's
+    labels, then `mg._build_levels` to the hierarchy's depth): the inputs of
+    `mg._finish_hierarchy`, to time and compare the coarse solvers apart."""
+    import torch
+
+    from geometricmultigridpressuresolver_tpu_torch.models import free_surface
+    from geometricmultigridpressuresolver_tpu_torch.solver import mg, mgpcg
+
+    _, _, trimmed, mg_w, _, _ = free_surface._setup_base_fields(
+        phi, s.weights, None, cfg.theta_clamp, torch.float32, cfg.dirichlet_band)
+    labels, exp_w = free_surface._expand_window_fields(trimmed, mg_w, s.window_start, s.base_pads, s.expanded_shape)
+    mg_dtype, fine_dtype, fine_full = mgpcg.fine_plan(cfg)
+    levels, flags, label_levels, _ = mg._build_levels(
+        labels, tuple(exp_w), s.problem.hier.num_levels, cfg.boundary_width, mg_dtype, cfg.mg_ew_dtype,
+        fine_dtype, fine_full)
+    return levels, flags, label_levels
+
+
+def with_coarse(s, dofs, minv, chol):
+    """Setup `s` with its hierarchy's coarse solver swapped for the given
+    one (to run a projection with the host path's factor)."""
+    hier = s.problem.hier._replace(coarse_dofs=dofs, coarse_minv=minv, coarse_chol=chol)
+    return s._replace(problem=s.problem._replace(hier=hier))
 
 
 def tensor_digests(tree) -> dict:
@@ -1537,13 +1580,13 @@ def main(argv=None) -> int:
 
     # Seconds per frame, the two paths in turns, twice; each call ends on a
     # device sync.
-    per_path = {"run()": [], "run_fused": []}
+    per_path, runs9 = {"run()": [], "run_fused": []}, []
     for _ in range(2):
         for tag in per_path:
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             if tag == "run()":
-                simulate.run(phi0, vel0, weights, num_frames=frames_n, config=sim_cfg)
+                runs9.append(simulate.run(phi0, vel0, weights, num_frames=frames_n, config=sim_cfg))
             else:
                 simulate.run_fused(phi0, vel0, weights, num_frames=frames_n, config=sim_cfg, chunk=frames_n)
             torch.cuda.synchronize()
@@ -1552,58 +1595,60 @@ def main(argv=None) -> int:
         print(f"[9] {tag}: {min(ts):.4f} s per frame at {n}^3, best of 2 in turns "
               f"(each: {', '.join(f'{t:.4f}' for t in ts)}) [{card}]")
     # Host syncs per frame of each path.
+    sites9 = {}
     for tag, fn in (("run()", lambda: simulate.run(phi0, vel0, weights, num_frames=frames_n, config=sim_cfg)),
                     ("run_fused", lambda: simulate.run_fused(phi0, vel0, weights, num_frames=frames_n,
                                                              config=sim_cfg, chunk=frames_n))):
-        _, sites = count_syncs(fn)
+        _, sites = sites9[tag] = count_syncs(fn)
         total = sum(sites.values())
         print(f"[9] {tag}: {total / frames_n:.1f} host syncs per frame ({total} in {frames_n} frames), by source "
               f"line: {dict(sites.most_common(12))}")
 
-    # At frame 1's geometry: the coarse system on the card against the host's
-    # (_finish_hierarchy: a sync per level, scipy assembly, fp64 inverse on
-    # the host), and the two timed with their syncs.
+    # At frame 1's geometry: the coarse system on the card (coarse_system_device,
+    # run_fused's) against the host path (coarse_system: scipy assembly, fp64
+    # inverse on the host), and the two timed with their syncs.  The setup's
+    # own coarse inverse (coarse_system_card, build_setup's card path) must
+    # be the same bits as coarse_system_device's.
     s1 = free_surface.build_setup(frames[0].liquid_phi, weights, config=sim_cfg)
-    _, _, trimmed1, mg_w1, _, _ = free_surface._setup_base_fields(
-        frames[0].liquid_phi, s1.weights, None, sim_cfg.theta_clamp, torch.float32, sim_cfg.dirichlet_band)
-    labels1, exp_w1 = free_surface._expand_window_fields(trimmed1, mg_w1, s1.window_start, s1.base_pads,
-                                                         s1.expanded_shape)
-    mg_dtype, fine_dtype, fine_full = mgpcg.fine_plan(sim_cfg)
-    levels1, flags1, label_levels1, _ = mg._build_levels(
-        labels1, tuple(exp_w1), s1.problem.hier.num_levels, sim_cfg.boundary_width, mg_dtype,
-        sim_cfg.mg_ew_dtype, fine_dtype, fine_full)
-    host_hier = s1.problem.hier
-    nd_pad1 = host_hier.coarse_minv.shape[0]
-    require(nd_pad1 > 0, "the host coarse system is not a dense inverse")
+    levels1, flags1, label_levels1 = window_levels(frames[0].liquid_phi, s1, sim_cfg)
+    mg_dtype = sim_cfg.mg_dtype_resolved
+    card_hier = s1.problem.hier
+    nd_pad1 = card_hier.coarse_minv.shape[0]
+    require(nd_pad1 > 0, "the card coarse system is not a dense inverse")
+    dofs_h1, minv_h1, _ = mg.coarse_system(label_levels1[-1], mg_dtype, dev)
     coarse_ms = {"host": [], "card": []}
     for _ in range(3):
         for tag in coarse_ms:
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             if tag == "host":
-                mg._finish_hierarchy(levels1, flags1, label_levels1, sim_cfg)
+                mg.coarse_system(label_levels1[-1], mg_dtype, dev)
             else:
                 mg.coarse_system_device(levels1[-1], nd_pad1)
             torch.cuda.synchronize()
             coarse_ms[tag].append((time.perf_counter() - t0) * 1e3)
-    _, host_syncs = count_syncs(lambda: mg._finish_hierarchy(levels1, flags1, label_levels1, sim_cfg))
+    _, host_syncs = count_syncs(lambda: mg.coarse_system(label_levels1[-1], mg_dtype, dev))
     (dofs1, minv1, ndof1), card_syncs = count_syncs(lambda: mg.coarse_system_device(levels1[-1], nd_pad1))
     again1 = mg.coarse_system_device(levels1[-1], nd_pad1)
     torch.cuda.synchronize()
     bit_equal = all(torch.equal(a, b) for a, b in zip((dofs1, minv1, ndof1), again1))
-    _, minv_rel = rel_err(minv1, host_hier.coarse_minv)
-    c_last = host_hier.levels[-1]
+    setup_equal = torch.equal(card_hier.coarse_minv, minv1) and torch.equal(card_hier.coarse_dofs, dofs1)
+    _, minv_rel = rel_err(minv1, minv_h1)
+    c_last = card_hier.levels[-1]
+    host_hier1 = card_hier._replace(coarse_dofs=dofs_h1, coarse_minv=minv_h1)
     r1 = torch.where(c_last.solvable, torch.randn(c_last.shape, generator=gen, device=dev), 0.0)
-    _, solve_rel = rel_err(mg.coarse_solve(host_hier._replace(coarse_dofs=dofs1, coarse_minv=minv1), r1),
-                           mg.coarse_solve(host_hier, r1))
+    _, solve_rel = rel_err(mg.coarse_solve(card_hier._replace(coarse_dofs=dofs1, coarse_minv=minv1), r1),
+                           mg.coarse_solve(host_hier1, r1))
     print(f"[9] frame 1's coarse system ({int(ndof1)} DOFs, bucket {nd_pad1}): on the card vs the host's "
           f"max relative |dminv| {minv_rel:.3e}, coarse_solve of a random vector {solve_rel:.3e}; slot maps "
-          f"equal {torch.equal(dofs1, host_hier.coarse_dofs)}; two card builds bit-equal {bit_equal}")
-    print(f"[9] coarse factorization, best of 3: host (_finish_hierarchy) {min(coarse_ms['host']):.2f} ms with "
+          f"equal {torch.equal(dofs1, dofs_h1)}; two card builds bit-equal {bit_equal}; the setup's "
+          f"(coarse_system_card) bit-equal to it {setup_equal}")
+    print(f"[9] coarse factorization, best of 3: host (coarse_system) {min(coarse_ms['host']):.2f} ms with "
           f"{sum(host_syncs.values())} host syncs, card (coarse_system_device) {min(coarse_ms['card']):.2f} ms "
           f"with {sum(card_syncs.values())}; each: host {[round(t, 2) for t in coarse_ms['host']]}, card "
           f"{[round(t, 2) for t in coarse_ms['card']]} [{card}]")
-    require(bit_equal and torch.equal(dofs1, host_hier.coarse_dofs), "coarse system on the card: not reproducible")
+    require(bit_equal and torch.equal(dofs1, dofs_h1), "coarse system on the card: not reproducible")
+    require(setup_equal, "the setup's coarse inverse differs from coarse_system_device's")
     # An fp32 LU inverse against an fp64 one rounded to fp32: the gap grows
     # with the coarse system's condition number.
     require(minv_rel <= 1e-2 and solve_rel <= 1e-2, "the card's coarse inverse differs from the host's")
@@ -2267,6 +2312,172 @@ def main(argv=None) -> int:
     require(all(abs(int(a) - int(b)) <= 1 for a, b in zip(stats12["mm"]["iterations"], stats12["slice"]["iterations"])),
             "[12e] the two forms' frames differ by more than one iteration")
     print(f"[12] phase 12 took {time.perf_counter() - t12:.1f} s [{card}]")
+
+    # ---- 13. the coarsest level factored on the card ----------------------------------
+    # fp32 on the card: every setup factors the coarsest level on the card
+    # (mg.coarse_direct -> coarse_system_card: an inverse up to 4096 bucketed
+    # DOFs, a Cholesky factor above); the host path (coarse_system, fp64
+    # numpy) is run here only to hold it against.
+    t13 = time.perf_counter()
+    print(f"[13] card: {card_line()}")
+    # [13a] The bench hierarchy (phase 3's): _finish_hierarchy's card path
+    # (one fetch of the flags and DOF counts, then the card) against the host
+    # path, in turns, best of 3, with their host syncs.
+    levels_a, flags_a, label_levels_a = window_levels(liquid_phi, setup, config)
+    ndof_a = int(hier.levels[-1].solvable.sum())
+    nd_pad_a = mg.coarse_bucket(ndof_a)
+    require(tuple(hier.coarse_minv.shape) == (nd_pad_a, nd_pad_a) and hier.coarse_chol.numel() == 0,
+            "[13a] the bench hierarchy's coarse solver is not the bucket's inverse")
+    run_a = {"host": lambda: mg.coarse_system(label_levels_a[-1], torch.float32, dev),
+             "card": lambda: mg._finish_hierarchy(levels_a, flags_a, label_levels_a, config)}
+    ms_a = {tag: [] for tag in run_a}
+    for _ in range(3):
+        for tag, fn in run_a.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            ms_a[tag].append((time.perf_counter() - t0) * 1e3)
+    host_a, syncs_host_a = count_syncs(run_a["host"])
+    card_a, syncs_card_a = count_syncs(run_a["card"])
+    again_a = run_a["card"]()
+    torch.cuda.synchronize()
+    keys = ("coarse_dofs", "coarse_minv", "coarse_chol")
+    bit_a = all(torch.equal(getattr(card_a, k), getattr(again_a, k)) for k in keys)
+    setup_a = all(torch.equal(getattr(card_a, k), getattr(hier, k)) for k in keys)
+    _, gap_a = rel_err(card_a.coarse_minv, host_a[1])
+    c_a = hier.levels[-1]
+    r_a = torch.where(c_a.solvable, torch.randn(c_a.shape, generator=gen, device=dev), 0.0)
+    host_hier_a = hier._replace(coarse_dofs=host_a[0], coarse_minv=host_a[1], coarse_chol=host_a[2])
+    _, solve_a = rel_err(mg.coarse_solve(card_a, r_a), mg.coarse_solve(host_hier_a, r_a))
+    print(f"[13a] bench hierarchy {[tuple(c.shape) for c in hier.levels]}: coarsest {ndof_a:,} DOFs, bucket "
+          f"{nd_pad_a} (inverse); best of 3 in turns: card (_finish_hierarchy) {min(ms_a['card']):.2f} ms with "
+          f"{sum(syncs_card_a.values())} host syncs {dict(syncs_card_a)}, host (coarse_system) "
+          f"{min(ms_a['host']):.2f} ms with {sum(syncs_host_a.values())}; each: card "
+          f"{[round(t, 2) for t in ms_a['card']]}, host {[round(t, 2) for t in ms_a['host']]} [{card}]")
+    print(f"[13a] card inverse vs the host's fp64 inverse rounded to fp32: max relative gap {gap_a:.3e}, "
+          f"coarse_solve of a random vector {solve_a:.3e}; slot maps equal "
+          f"{torch.equal(card_a.coarse_dofs, host_a[0])}; two card builds bit-equal {bit_a}; equal to phase 3's "
+          f"setup {setup_a}")
+    require(sum(syncs_card_a.values()) == 1, "[13a] the card path does not sync the host exactly once")
+    require(bit_a and setup_a, "[13a] the card path is not reproducible")
+    require(torch.equal(card_a.coarse_dofs, host_a[0]), "[13a] the slot maps differ")
+    require(gap_a <= 1e-4 and solve_a <= 1e-4, "[13a] the card inverse differs from the host's beyond fp32 rounding")
+
+    # [13b] The Cholesky branch at size: the bench scene capped where the
+    # coarsest bucket lands in (4096, 16384] (the 256^3 scene when this
+    # run's own has no such level).
+    def cap_for(h):
+        for lv in range(h.num_levels - 2, 0, -1):
+            if mg.COARSE_INVERSE_MAX_PAD < -(-int(h.levels[lv].solvable.sum()) // 256) * 256 <= 16384:
+                return lv + 1
+        return None
+
+    m_b, phi_b, vel_b, w_b, cap_b = n, liquid_phi, velocity, weights, cap_for(hier)
+    if cap_b is None:
+        m_b = 256
+        phi_b, vel_b = sdf.splash_scene((m_b,) * 3, device=dev, dtype=torch.float32)
+        w_b = sdf.open_box_weights((m_b,) * 3, device=dev, dtype=torch.float32)
+        cap_b = cap_for(free_surface.build_setup(phi_b, w_b, config=config).problem.hier)
+    require(cap_b is not None, "[13b] no level of the bench scene has a bucket in (4096, 16384]")
+    cfg_b = dataclasses.replace(config, max_mg_levels=cap_b)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    setup_b = free_surface.build_setup(phi_b, w_b, config=cfg_b)
+    torch.cuda.synchronize()
+    t_setup_b = time.perf_counter() - t0
+    hier_b = setup_b.problem.hier
+    nd_pad_b = hier_b.coarse_chol.shape[0]
+    require(hier_b.num_levels == cap_b and hier_b.coarse_minv.numel() == 0
+            and nd_pad_b > mg.COARSE_INVERSE_MAX_PAD, "[13b] the capped hierarchy did not take the Cholesky branch")
+    levels_b, flags_b, label_levels_b = window_levels(phi_b, setup_b, cfg_b)
+    card_b, syncs_b = count_syncs(lambda: mg._finish_hierarchy(levels_b, flags_b, label_levels_b, cfg_b))
+    ms_b = {"card": [], "host": []}
+    for tag, fn in (("card", lambda: mg._finish_hierarchy(levels_b, flags_b, label_levels_b, cfg_b)),
+                    ("host", lambda: mg.coarse_system(label_levels_b[-1], torch.float64, dev))):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out_b = fn()
+        torch.cuda.synchronize()
+        ms_b[tag] = (time.perf_counter() - t0) * 1e3
+    dofs_hb, _, chol_hb = out_b  # the host path's factor in fp64 (np.linalg.cholesky)
+    # Off the hot path: the factorization's own status, read here.
+    info_b = int(torch.linalg.cholesky_ex(mg.coarse_matrix(hier_b.levels[-1], nd_pad_b)[0])[1])
+    finite_b = bool(torch.isfinite(hier_b.coarse_chol).all())
+    _, gap_b = rel_err(hier_b.coarse_chol, chol_hb)
+    host_b = with_coarse(setup_b, dofs_hb, hier_b.coarse_minv, chol_hb.float())
+    c_b = hier_b.levels[-1]
+    r_b = torch.where(c_b.solvable, torch.randn(c_b.shape, generator=gen, device=dev), 0.0)
+    _, solve_b = rel_err(mg.coarse_solve(hier_b, r_b), mg.coarse_solve(host_b.problem.hier, r_b))
+    res_b = {tag: free_surface.project(s_, vel_b, config=cfg_b) for tag, s_ in (("card", setup_b), ("host", host_b))}
+    _, p_b = rel_err(res_b["card"].pressure, res_b["host"].pressure)
+    print(f"[13b] {m_b}^3 bench splash with max_mg_levels={cap_b}: levels {[tuple(c.shape) for c in hier_b.levels]}, "
+          f"coarsest {int(c_b.solvable.sum()):,} DOFs, bucket {nd_pad_b} (Cholesky); setup {t_setup_b:.3f} s; "
+          f"_finish_hierarchy on the card {ms_b['card']:.2f} ms with {sum(syncs_b.values())} host syncs, host fp64 "
+          f"factor (coarse_system) {ms_b['host']:.2f} ms [{card}]")
+    print(f"[13b] card factor: info {info_b}, finite {finite_b}, lower {torch.equal(hier_b.coarse_chol, hier_b.coarse_chol.tril())}; "
+          f"max relative gap to np.linalg.cholesky in fp64 {gap_b:.3e}; coarse_solve vs the host factor's {solve_b:.3e}; "
+          f"slot maps equal {torch.equal(hier_b.coarse_dofs, dofs_hb)}; projection iterations card "
+          f"{res_b['card'].cg.iterations} vs host factor {res_b['host'].cg.iterations}, pressure max relative "
+          f"difference {p_b:.3e}")
+    require(info_b == 0 and finite_b, "[13b] the card Cholesky factor failed")
+    require(sum(syncs_b.values()) == 1, "[13b] the card path does not sync the host exactly once")
+    require(torch.equal(hier_b.coarse_dofs, dofs_hb) and torch.equal(card_b.coarse_chol, hier_b.coarse_chol),
+            "[13b] the Cholesky path is not reproducible or its slot map differs")
+    require(gap_b <= 1e-4 and solve_b <= 1e-4, "[13b] the card factor differs from the host's beyond fp32 rounding")
+    require(all(r.cg.converged for r in res_b.values())
+            and abs(res_b["card"].cg.iterations - res_b["host"].cg.iterations) <= 1 and p_b <= 1e-3,
+            "[13b] the projections with the card and host factors differ")
+    del setup_b, host_b, hier_b, levels_b, label_levels_b, card_b, res_b, chol_hb, phi_b, vel_b, w_b
+
+    # [13c] The bench projections with the card inverse (phase 3's setup, and
+    # the 512^3 splash of [11e] / [12d]) against the same setups with the host
+    # path's inverse swapped in.
+    res_ch = free_surface.project(with_coarse(setup, *host_a), velocity, config=config)
+    _, p_c = rel_err(result.pressure, res_ch.pressure)
+    print(f"[13c] {n}^3 projection: iterations card inverse {iters} vs host inverse {res_ch.cg.iterations} "
+          f"(with the host path, as recorded in PERF.md: 17), pressure max relative difference {p_c:.3e}")
+    require(res_ch.cg.converged and abs(iters - res_ch.cg.iterations) <= 1 and p_c <= 1e-3,
+            "[13c] the bench projection differs between the card and host inverses")
+    ne = 2 * n
+    phi_e, vel_e = sdf.splash_scene((ne, ne, ne), device=dev, dtype=torch.float32)
+    w_e = sdf.open_box_weights((ne, ne, ne), device=dev, dtype=torch.float32)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    setup_e = free_surface.build_setup(phi_e, w_e, config=config)
+    torch.cuda.synchronize()
+    t_setup_e = time.perf_counter() - t0
+    levels_e, _, label_levels_e = window_levels(phi_e, setup_e, config)
+    host_e = mg.coarse_system(label_levels_e[-1], torch.float32, dev)
+    del phi_e, w_e, levels_e, label_levels_e
+    res_ce = {tag: free_surface.project(s_, vel_e, config=config)
+              for tag, s_ in (("card", setup_e), ("host", with_coarse(setup_e, *host_e)))}
+    _, p_e = rel_err(res_ce["card"].pressure, res_ce["host"].pressure)
+    _, gap_e = rel_err(setup_e.problem.hier.coarse_minv, host_e[1])
+    print(f"[13c] {ne}^3 projection (window {setup_e.expanded_shape}, coarse bucket "
+          f"{setup_e.problem.hier.coarse_minv.shape[0]}, setup {t_setup_e:.3f} s): iterations card inverse "
+          f"{res_ce['card'].cg.iterations} vs host inverse {res_ce['host'].cg.iterations} (with the host path, as recorded in PERF.md: 23), "
+          f"pressure max relative difference {p_e:.3e}; inverse gap {gap_e:.3e} [{card}]")
+    require(all(r.cg.converged for r in res_ce.values())
+            and abs(res_ce["card"].cg.iterations - res_ce["host"].cg.iterations) <= 1 and p_e <= 1e-3,
+            "[13c] the 512^3 projection differs between the card and host inverses")
+    del setup_e, vel_e, res_ce, host_e
+    torch.cuda.empty_cache()
+
+    # [13d] run() over phase 7's frames, from phase 9's runs in turns with
+    # run_fused: seconds per frame by stage and host syncs per frame.
+    best9 = runs9[min(range(2), key=lambda i: per_path["run()"][i])]
+    stage9 = {k: sum(fr.seconds[k] for fr in best9) / frames_n for k in ("advect", "setup", "project")}
+    sites_run = sites9["run()"][1]
+    print(f"[13d] run() at {n}^3 (phase 9): {min(per_path['run()']):.4f} s per frame, best of 2 in turns (each: "
+          f"{', '.join(f'{t:.4f}' for t in per_path['run()'])}; with the host coarse path, as recorded in PERF.md: "
+          f"0.3163 s), by stage {', '.join(f'{k} {v:.4f} s' for k, v in stage9.items())} (host coarse path: setup "
+          f"0.172-0.199 s); run_fused {min(per_path['run_fused']):.4f} s per frame [{card}]")
+    print(f"[13d] run(): {sum(sites_run.values()) / frames_n:.1f} host syncs per frame (host coarse path: 42.8), "
+          f"{sum(v for k, v in sites_run.items() if k.startswith('solver/mg.py')) / frames_n:.1f} of them in "
+          f"solver/mg.py (_finish_hierarchy's one fetch); iterations "
+          f"{[fr.iterations for fr in best9]}")
+    print(f"[13] phase 13 took {time.perf_counter() - t13:.1f} s [{card}]")
 
     src = "geometricmultigridpressuresolver_tpu_torch/csrc/"
     jax_src = "geometricmultigridpressuresolver_tpu/"

@@ -311,8 +311,11 @@ def partitioned_problem(fetch: Callable, shape, target_levels: int, config, mesh
             if not any(splits[lv - 1]) and not any(splits[lv]):
                 _check(mesh, domain_ops.check_coarsening(blocks[lv - 1], blocks[lv]), f"the coarsening to level {lv}")
 
+    # The coarsest level is whole on every rank, and each rank factors it
+    # on its own device by `mg.coarse_direct`'s rule, with no collective.
     coarsest = distributed.gather_blocks(blocks[-1], mesh, shapes[-1], splits[-1])
-    dofs, minv, chol = mg.coarse_system(coarsest, dtype, mesh.device)
+    whole = levels[-1] if len(shapes) > 1 and not sharded[-1] else None
+    dofs, minv, chol = mg.coarse_direct(coarsest, None, whole, config, mesh.device)
     hier = mg.MGHierarchy(levels, dofs, minv, chol, shapes=tuple(shapes))
     return mgpcg._finish_problem(hier, fine, fine_full)
 

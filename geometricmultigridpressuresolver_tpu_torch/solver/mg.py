@@ -2,9 +2,14 @@
 
   * build_hierarchy: label coarsening with the JAX package's lane alignment,
     per-level coefficients, capping at the first coarse level without DOFs,
-    and the coarsest level's direct solver (dense inverse, or a Cholesky
-    factor above COARSE_INVERSE_MAX_PAD DOFs), factored on the host in
-    float64 with numpy and moved to the device.
+    and the coarsest level's direct solver (a dense inverse, or a Cholesky
+    factor above COARSE_INVERSE_MAX_PAD bucketed DOFs).  The rule is the
+    JAX package's (its `_finish_hierarchy`, mg.py:469-509), by device and
+    dtype (`coarse_on_card`): with the levels on a CUDA device and a
+    float32 V-cycle the system is assembled, padded and factored on the
+    card (`coarse_system_card`); in float64, or on the CPU, it is
+    assembled with scipy and factored on the host in float64 with numpy
+    (`coarse_system`).
   * v_cycle: a V(1,1) cycle whose smoothing blocks are
     `ops.fused_smoother.smooth_level` (the CUDA kernel on CUDA tensors),
     adjoint GS ordering on the upstroke, 4x trilinear prolongation, and a
@@ -19,9 +24,9 @@
   * use_mm_transfers: which form of the transfers `v_cycle` runs
     (`config.transfer_mode`): per-axis matrix products or shifted slices.
   * coarse_system_device: the coarsest level's identity-padded dense
-    inverse assembled and inverted on the level's device (JAX
-    `_coarse_system_traced`), for the frozen-geometry frame loop
-    (`models.simulate.run_fused`).
+    inverse assembled and inverted on the level's device with a bucket the
+    caller sizes (JAX `_coarse_system_traced`), for the frozen-geometry
+    frame loop (`models.simulate.run_fused`).
 
 Without a mesh every smoothed level runs the single-device chunk kernel on
 the card: it takes any shape, so there is no eligibility gate -- and
@@ -202,15 +207,23 @@ def build_hierarchy(
 def _finish_hierarchy(
     levels, flags, label_levels, config: SolverConfig, validate: bool = False, host_fw=None
 ) -> MGHierarchy:
-    """Level capping and the coarsest direct solver (host side)."""
-    dtype = config.mg_dtype_resolved
+    """Level capping and the coarsest direct solver (`coarse_direct`).
+
+    One round trip, as in the JAX package (mg.py:425-428): the capping
+    flags and every level's DOF count come to the host as one tensor, so
+    the cap and the bucket need no second fetch; the card path then syncs
+    no more.  `validate` fetches every level's labels besides."""
     levels = list(levels)
     label_levels = list(label_levels)
-    for i, ok in enumerate(flags):
-        if not bool(ok):
+    counts = torch.stack(
+        [f.to(torch.int64) for f in flags] + [c.solvable.sum() for c in levels]
+    ).cpu().tolist()
+    for i, ok in enumerate(counts[: len(flags)]):
+        if not ok:
             levels = levels[: i + 1]
             label_levels = label_levels[: i + 1]
             break
+    ndof = counts[len(flags) + len(levels) - 1]
 
     if validate:
         label_host = [lv.cpu() for lv in label_levels]
@@ -221,24 +234,64 @@ def _finish_hierarchy(
             assert domain_ops.check_coarsening(fine, coarse_lv)
             assert domain_ops.check_boundary_cells(coarse_lv, None)
 
-    dofs, minv, chol = coarse_system(label_levels[-1], dtype, levels[0].diag.device)
+    coarse = levels[-1] if len(levels) > 1 else None
+    dofs, minv, chol = coarse_direct(label_levels[-1], ndof, coarse, config, levels[0].diag.device)
     return MGHierarchy(levels=tuple(levels), coarse_dofs=dofs, coarse_minv=minv, coarse_chol=chol)
 
 
-def coarse_system(labels, dtype, device):
-    """The coarsest level's direct solver from its whole labels, factored on
-    the host in float64: (coarse_dofs, coarse_minv, coarse_chol)."""
-    coarsest = labels.cpu().numpy()
-    a, idx = assembled.assemble_poisson(coarsest, None)
-    ndof = a.shape[0]
+def coarse_on_card(device, dtype) -> bool:
+    """Whether the coarsest level is factored on the card: a CUDA device
+    and a float32 V-cycle -- the JAX package's rule (mg.py:474-477: an
+    accelerator platform and float32) with the levels' device in place of
+    JAX's default one.  Float64, or the CPU, takes the host path."""
+    return torch.device(device).type == "cuda" and dtype == torch.float32
+
+
+def coarse_bucket(ndof: int) -> int:
+    """The bucketed DOF count of a coarsest level with `ndof` DOFs: a
+    multiple of 256, at least 256 (0 without DOFs).  Pad slots get an
+    identity block, so block_diag(A, I)^-1 = block_diag(A^-1, I).  Over
+    16384 DOFs the dense solve is refused."""
     if ndof > 16384:
         raise ValueError(
             f"coarsest level has {ndof} DOFs; increase mg levels "
             "(dense coarse solve would be too large)"
         )
-    # Bucketed DOF count: pad slots get an identity block, so
-    # block_diag(A, I)^-1 = block_diag(A^-1, I).
-    nd_pad = max(256, -(-ndof // 256) * 256) if ndof else 0
+    return max(256, -(-ndof // 256) * 256) if ndof else 0
+
+
+def coarse_direct(labels, ndof: int | None, coarse, config: SolverConfig, device):
+    """The coarsest level's direct solver by `coarse_on_card`'s rule:
+    (coarse_dofs, coarse_minv, coarse_chol).
+
+    `labels` are the coarsest level's whole labels; `ndof` their DOF count
+    (None: counted here, a host sync); `coarse` their whole coefficients
+    with unit weights, or None to build them here (the finest level's own
+    carry its face weights, which the coarse system never uses)."""
+    dtype = config.mg_dtype_resolved
+    if not coarse_on_card(device, dtype):
+        return coarse_system(labels, dtype, device)
+    if ndof is None:
+        ndof = int(is_solvable(labels).sum())
+    nd_pad = coarse_bucket(ndof)
+    if coarse is None:
+        coarse = _level_coeffs(labels, None, config.boundary_width, dtype, None)
+    return coarse_system_card(coarse, nd_pad)
+
+
+def coarse_system(labels, dtype, device):
+    """The host path of the coarsest level's direct solver (JAX
+    `_finish_hierarchy`'s non-accelerator branch, mg.py:500-509), taken in
+    float64 or on the CPU: the matrix assembled from the whole labels with
+    scipy (`assembled.assemble_poisson`), padded to `coarse_bucket`'s
+    bucket with an identity block and factored on the host in float64 with
+    numpy -- inverted and symmetrized up to COARSE_INVERSE_MAX_PAD, a lower
+    Cholesky factor above -- then cast to `dtype` on `device`:
+    (coarse_dofs, coarse_minv, coarse_chol)."""
+    coarsest = labels.cpu().numpy()
+    a, idx = assembled.assemble_poisson(coarsest, None)
+    ndof = a.shape[0]
+    nd_pad = coarse_bucket(ndof)
     empty = torch.zeros((0, 0), dtype=dtype, device=device)
     minv = chol = empty
     if ndof:
@@ -254,25 +307,24 @@ def coarse_system(labels, dtype, device):
     return torch.as_tensor(dofs, dtype=torch.int64, device=device), minv, chol
 
 
-def coarse_system_device(c: stencil.LevelCoeffs, nd_pad: int):
-    """The coarsest level's direct solve built on the level's device and in
-    its dtype, with no host round trip: (coarse_dofs, coarse_minv, ndof),
-    the counterpart of the JAX package's `_coarse_system_traced`.
+def coarse_matrix(c: stencil.LevelCoeffs, nd_pad: int):
+    """The coarsest level's identity-padded dense system, assembled on the
+    level's device and in its dtype: (a, coarse_dofs, ndof), the
+    counterpart of the JAX package's `_densify` (and of the assembly in its
+    `_coarse_system_traced`).
 
-    The identity-padded dense system comes straight from the stencil
-    coefficients (A[i,i] = diag, A[i,j] = -ew between solvable neighbours,
-    the operator `stencil.apply_poisson` applies), in flat C cell order as
-    the host assembler numbers the DOFs.  It is (nd_pad + 1)^2 with a dump
-    row and column at nd_pad: non-DOF cells, couplings to Dirichlet or
-    exterior neighbours and slots past the bucket (ndof > nd_pad) all
-    write there, and the dump is cut off.  Every kept entry is written
-    once, with no accumulation, so the matrix is the same bits on every
-    call.  Then `torch.linalg.inv_ex` (the inverse without its error check,
-    which would sync the host; the JAX package's traced path also always
-    inverts), symmetrized.  `coarse_dofs` maps slots to flat cells, pad
-    slots holding the sentinel ncell; `ndof` is a device scalar, and
-    `ndof > nd_pad` means the bucket overflowed (the preconditioner is
-    then weakened but still symmetric; `run_fused` checks it).
+    The matrix comes straight from the stencil coefficients (A[i,i] = diag,
+    A[i,j] = -ew between solvable neighbours, the operator
+    `stencil.apply_poisson` applies), in flat C cell order as the host
+    assembler numbers the DOFs; with unit weights it is the matrix of
+    `assembled.assemble_poisson`, entry for entry.  It is built
+    (nd_pad + 1)^2 with a dump row and column at nd_pad: non-DOF cells,
+    couplings to Dirichlet or exterior neighbours and slots past the bucket
+    (ndof > nd_pad) all write there, and the dump is cut off.  Every kept
+    entry is written once, with no accumulation, so the matrix is the same
+    bits on every call and device; no host sync.  `coarse_dofs` maps slots
+    to flat cells, pad slots holding the sentinel ncell; `ndof` is a
+    device scalar.
     """
     dtype, dev = c.diag.dtype, c.diag.device
     solv = c.solvable.reshape(-1)
@@ -298,11 +350,52 @@ def coarse_system_device(c: stencil.LevelCoeffs, nd_pad: int):
     a = a.reshape(side, side)[:nd_pad, :nd_pad]
     i = torch.arange(nd_pad, device=dev)
     a[i, i] += (i >= ndof).to(dtype)
-    minv = torch.linalg.inv_ex(a)[0]
-    minv = 0.5 * (minv + minv.T)
     dofs = torch.full((side,), ncell, dtype=torch.int64, device=dev)
     dofs[slot] = torch.arange(ncell, dtype=torch.int64, device=dev)
-    return dofs[:nd_pad], minv, ndof
+    return a, dofs[:nd_pad], ndof
+
+
+def coarse_system_card(c: stencil.LevelCoeffs, nd_pad: int):
+    """The card path of the coarsest level's direct solver (JAX
+    `_finish_hierarchy`'s accelerator branch, mg.py:477-499): the padded
+    system from `coarse_matrix`, then, on the level's device and in its
+    dtype, with no host sync, either (nd_pad <= COARSE_INVERSE_MAX_PAD)
+    its inverse symmetrized (JAX `_densify_invert`) or its lower Cholesky
+    factor (JAX `_densify_cholesky`): (coarse_dofs, coarse_minv,
+    coarse_chol), the unused one (0, 0).
+
+    The factorizations skip their error checks, which would sync the host
+    (`inv_ex`, `cholesky_ex`); a failed Cholesky factor is all NaN, as the
+    JAX package's is, for the caller to see.  `nd_pad` must hold every DOF
+    (`coarse_bucket`)."""
+    empty = c.diag.new_zeros((0, 0))
+    if nd_pad == 0:
+        return torch.zeros(0, dtype=torch.int64, device=c.diag.device), empty, empty
+    a, dofs, _ = coarse_matrix(c, nd_pad)
+    if nd_pad > COARSE_INVERSE_MAX_PAD:
+        chol, info = torch.linalg.cholesky_ex(a)
+        return dofs, empty, torch.where(info == 0, chol, float("nan"))
+    minv = torch.linalg.inv_ex(a)[0]
+    return dofs, 0.5 * (minv + minv.T), empty
+
+
+def coarse_system_device(c: stencil.LevelCoeffs, nd_pad: int):
+    """The coarsest level's direct solve built on the level's device and in
+    its dtype, with no host round trip: (coarse_dofs, coarse_minv, ndof),
+    the counterpart of the JAX package's `_coarse_system_traced`.
+
+    `coarse_matrix` assembles the system in a bucket of `nd_pad` slots the
+    caller sizes; then `torch.linalg.inv_ex` (the inverse without its
+    error check, which would sync the host; the JAX package's traced path
+    also always inverts, whatever the bucket), symmetrized.  `ndof` is a
+    device scalar, and `ndof > nd_pad` means the bucket overflowed (the
+    preconditioner is then weakened but still symmetric; `run_fused` checks
+    it).
+    """
+    a, dofs, ndof = coarse_matrix(c, nd_pad)
+    minv = torch.linalg.inv_ex(a)[0]
+    minv = 0.5 * (minv + minv.T)
+    return dofs, minv, ndof
 
 
 def coarse_solve(hier: MGHierarchy, b: torch.Tensor) -> torch.Tensor:

@@ -392,6 +392,68 @@ def test_coarse_system_device_on_the_card(device, dtype):
         assert _rel(first[1].cpu(), cpu[1]) <= (1e-4 if dtype == torch.float32 else 1e-10)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_finish_hierarchy_coarse_rule_on_the_card(device, dtype, monkeypatch):
+    """fp32 on the card factors the coarsest level on the card: the host
+    path never runs, `_finish_hierarchy` syncs the host once (the flags and
+    DOF counts), the slot map equals the host path's and the inverse is
+    within fp32 rounding of the host fp64 one (1e-4 of its largest entry,
+    an fp32 LU against an fp64 LU rounded).  fp64 keeps the host path, bit
+    for bit the CPU's."""
+    import warnings
+
+    labels, weights, mg_levels = _sine_domain(32)
+    cfg = SolverConfig(mg_dtype=dtype)
+    fw = tuple(w.to(device, dtype) for w in weights)
+    levels, flags, label_levels, _ = mg._build_levels(labels.to(device), fw, mg_levels, cfg.boundary_width, dtype)
+    host = mg.coarse_system(label_levels[-1], dtype, device)
+    calls = []
+    real = mg.coarse_system
+    monkeypatch.setattr(mg, "coarse_system", lambda *a: calls.append(a) or real(*a))
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            hier = mg._finish_hierarchy(levels, flags, label_levels, cfg)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    syncs = [w for w in caught if "called a synchronizing" in str(w.message)]
+    assert torch.equal(hier.coarse_dofs, host[0]) and hier.coarse_chol.numel() == 0
+    if dtype == torch.float32:
+        assert not calls
+        assert len(syncs) == 1, [str(w.message) for w in syncs]
+        assert torch.equal(hier.coarse_minv, hier.coarse_minv.T)
+        assert _rel(hier.coarse_minv, host[1]) <= 1e-4
+    else:
+        assert len(calls) == 1 and torch.equal(hier.coarse_minv, host[1])
+        cpu = mg.coarse_system(label_levels[-1].cpu(), dtype, "cpu")
+        assert torch.equal(hier.coarse_minv.cpu(), cpu[1])
+
+
+def test_capped_hierarchy_takes_the_cholesky_branch_on_the_card(device):
+    """A 64^3 Dirichlet box capped at two levels: level 1 holds 4352 DOFs, a
+    bucket above COARSE_INVERSE_MAX_PAD, so fp32 on the card takes a lower
+    Cholesky factor, finite, within 1e-4 of the host's fp64 factor, and
+    `coarse_solve` with it within 1e-4 of the host factor's solve."""
+    labels = torch.full((64, 64, 64), 1, dtype=torch.int8)  # DIRICHLET
+    labels[16:48, 16:48, 14:48] = 2  # INTERIOR
+    labels = domain.set_boundary_labels(labels, None)
+    cfg = SolverConfig(mg_dtype=torch.float32, max_mg_levels=2)
+    hier = mg.build_hierarchy(labels, None, 4, cfg, device=device)
+    assert hier.num_levels == 2 and hier.coarse_minv.numel() == 0
+    assert tuple(hier.coarse_chol.shape) == (4352, 4352) and mg.COARSE_INVERSE_MAX_PAD < 4352
+    assert bool(torch.isfinite(hier.coarse_chol).all()) and torch.equal(hier.coarse_chol, hier.coarse_chol.tril())
+    _, _, label_levels, _ = mg._build_levels(labels, None, 2, cfg.boundary_width, torch.float64)
+    dofs, _, chol = mg.coarse_system(label_levels[-1], torch.float64, device)
+    assert torch.equal(hier.coarse_dofs, dofs) and _rel(hier.coarse_chol, chol) <= 1e-4
+    c = hier.levels[-1]
+    gen = torch.Generator(device=device).manual_seed(4)
+    r = torch.where(c.solvable, torch.randn(c.shape, generator=gen, device=device), 0.0)
+    want = mg.coarse_solve(hier._replace(coarse_chol=chol.float()), r)
+    assert _rel(mg.coarse_solve(hier, r), want) <= 1e-4
+
+
 def test_run_fused_on_the_card_matches_run(device):
     """Two fused frames on the card against run(): the kernels launched in
     the chunk, iterations equal, fields within 1e-10 (fp64)."""
