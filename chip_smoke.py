@@ -11,7 +11,9 @@ Phases (any failure exits non-zero and prints no result line):
      fp32 with bf16 edge weights, band-restricted boundary passes
      (pallas_band_strip=128, the default), tol 1e-5, 200 iterations): the
      port's splash_scene -> build_setup -> project, with every kernel launch
-     counter reset just before and read just after; the counts must equal
+     counter reset just before and read just after (each kernel adds one to
+     its counter on the device as it starts, so a launch from the replayed
+     CUDA graph counts where it runs); the counts must equal
      what the hierarchy, the chunk plan and the iteration count imply; per
      smoothed level the chunk kernel's depth, tile and active tiles;
   4. each kernel against its plain PyTorch version on random inputs (a
@@ -135,6 +137,24 @@ Phases (any failure exits non-zero and prints no result line):
      with the host path's inverse swapped in; [13d] run() over phase 7's
      frames, from phase 9's runs in turns with run_fused: seconds per frame
      by stage and host syncs per frame.
+ 14. the CG loop as a captured CUDA graph (solver/graph.py; every earlier
+     phase already ran every single-process solve through it) against the
+     eager loop (`eager_cg_loop`): [14a] the bench projection with residual
+     histories, graph and eager: iterations, pressure and history bit-equal,
+     launch counts exact and equal, one capture, host syncs per solve at
+     most ceil(iterations / K) + 3; [14b] the splash at n/4, n/2, n and 2n
+     (64^3-512^3 at the default), graph and eager in turns, best of 3: wall
+     and CUDA-event ms, x bit-equal, host syncs, capture and instantiate
+     ms, graph launches and reads, peak device memory, one profiled solve
+     each (device ms, the port's kernels by name beside the device launch
+     counters, the host's launch calls by API; at n/4 also under a profiler
+     schedule, with the device events it lacks), and after the largest
+     size and the smallest, reserved memory before and after empty_cache
+     with no capture pool left holding memory; [14c] the K sweep
+     (1, 4, 8, 16) at n and n/4; [14d] captures per solve through every
+     single-process entry point (solve, project, the block mesh, the plain
+     path, Chebyshev, run(), run_fused); [14e] run() and run_fused seconds
+     per frame, graph against eager in turns, and host syncs per frame.
 Every kernel's entry in the kernels JSON has its launches on its path (and
 on phase 10's blocks, `launches_test_node`, and per rank of [11b],
 `launches_distributed`), its
@@ -152,6 +172,7 @@ from __future__ import annotations
 
 import argparse
 import collections
+import contextlib
 import dataclasses
 import json
 import re
@@ -670,6 +691,14 @@ def device_events(fn, calls: int = 10):
     return host / calls, sum(e.count for e in dev) / calls, sum(device_us(e) for e in dev) / 1e3 / calls
 
 
+def private_pools() -> set:
+    """The ids of the private (CUDA graph) memory pools that hold a device
+    memory segment."""
+    import torch
+
+    return {tuple(seg["segment_pool_id"]) for seg in torch.cuda.memory_snapshot()} - {(0, 0)}
+
+
 def device_us(event) -> float:
     """A profiler event's self device time in microseconds (the attribute's
     name changed across torch versions)."""
@@ -701,6 +730,108 @@ def rounded_once_reference(kind: str, *args):
         if axis < 2:
             up = up.to(bf16).double()
     return torch.where(fine_solvable, (fine_x.double() + 4.0 * up).to(bf16), fine_x)
+
+
+@contextlib.contextmanager
+def eager_cg_loop():
+    """Inside the block the CG loop runs eagerly, the host testing `running`
+    after every iteration (`solver.cg.run_eager`), where it would run as
+    the captured graph (`mgpcg.loop_runner`'s rule)."""
+    from geometricmultigridpressuresolver_tpu_torch.solver import mgpcg
+
+    saved = mgpcg.loop_runner
+    mgpcg.loop_runner = lambda stages, rhs: None
+    try:
+        yield
+    finally:
+        mgpcg.loop_runner = saved
+
+
+def loop_mode(eager: bool):
+    return eager_cg_loop() if eager else contextlib.nullcontext()
+
+
+def bench_rhs(setup, velocity):
+    """The projection's right-hand side of a setup (phase 5's)."""
+    import torch
+
+    from geometricmultigridpressuresolver_tpu_torch.models import free_surface
+
+    return free_surface.embed_window(
+        free_surface.negative_divergence(setup.liquid_mask, tuple(v.to(torch.float32) for v in velocity),
+                                         setup.weights),
+        setup.window_start, setup.base_pads, setup.expanded_shape,
+    )
+
+
+def timed_solve(problem, rhs, config, eager: bool, mesh=None):
+    """One `mgpcg.solve`, through the graph or eagerly: (result, wall ms on
+    the host clock up to a device sync, ms between CUDA events around it,
+    a copy of `graph.STATS` for this solve)."""
+    import torch
+
+    from geometricmultigridpressuresolver_tpu_torch.solver import graph, mgpcg
+
+    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    graph.STATS.reset()
+    torch.cuda.synchronize()
+    with loop_mode(eager):
+        t0 = time.perf_counter()
+        start.record()
+        res = mgpcg.solve(problem, rhs, config=config, mesh=mesh)
+        stop.record()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    return res, wall, start.elapsed_time(stop), dataclasses.replace(graph.STATS)
+
+
+PORT_KERNEL = re.compile(r"(smooth_chunk|cg_step|residual|sum_partials|halo_gather|core_scatter|set_condition)_kernel")
+
+
+def port_kernels(events) -> dict:
+    """Launches of the port's kernels by name among profiler events (any
+    spelling of the name)."""
+    from torch.autograd import DeviceType
+
+    port = collections.Counter()
+    for e in events:
+        m = PORT_KERNEL.search(e.key)
+        if m and getattr(e, "device_type", None) == DeviceType.CUDA:
+            port[m.group(0)] += e.count
+    return dict(port)
+
+
+def profiled_solve(problem, rhs, config, eager: bool) -> dict:
+    """One warm `mgpcg.solve` under torch.profiler (the solve before it runs
+    unprofiled): device ms and launches, the port's kernels by name as the
+    trace shows them, the launch counters of the same solve (counted on
+    the device), every device event's count and ms by key, and the host's
+    launch calls by API name."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as torch_profile
+
+    from geometricmultigridpressuresolver_tpu_torch.ops import _cuda
+    from geometricmultigridpressuresolver_tpu_torch.solver import mgpcg
+
+    with loop_mode(eager):
+        mgpcg.solve(problem, rhs, config=config)
+        torch.cuda.synchronize()
+        for c in _cuda.COUNTERS:
+            c.reset()
+        with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            mgpcg.solve(problem, rhs, config=config)
+            torch.cuda.synchronize()
+    events = prof.key_averages()
+    dev = [e for e in events if getattr(e, "device_type", None) == DeviceType.CUDA]
+    host = [e for e in events if getattr(e, "device_type", None) != DeviceType.CUDA]
+    return dict(
+        device_ms=sum(device_us(e) for e in dev) / 1e3, device_launches=sum(e.count for e in dev),
+        port_kernels=port_kernels(dev), counters={c.name: c.count for c in _cuda.COUNTERS if c.count},
+        keys={e.key: (e.count, device_us(e) / 1e3) for e in dev},
+        launch_calls={e.key: e.count for e in host if "Launch" in e.key},
+    )
 
 
 def main(argv=None) -> int:
@@ -1079,13 +1210,7 @@ def main(argv=None) -> int:
     print(f"[4] fine block by pass kind, one launch each with the dot: {', '.join(part_ms)} [{card}]")
 
     # ---- 5. solve times, kernels vs plain ---------------------------------------------
-    rhs = free_surface.embed_window(
-        free_surface.negative_divergence(
-            setup.liquid_mask,
-            tuple(v.to(torch.float32) for v in velocity), setup.weights,
-        ),
-        setup.window_start, setup.base_pads, setup.expanded_shape,
-    )
+    rhs = bench_rhs(setup, velocity)
     config_t = dataclasses.replace(config, kernel_mode="torch")
     config_h = dataclasses.replace(config, mg_field_dtype=torch.bfloat16)
 
@@ -1153,8 +1278,19 @@ def main(argv=None) -> int:
         torch.cuda.synchronize()
         wall_prof = time.perf_counter() - t0
     trace_bytes = Path(trace_dir, "trace.json").stat().st_size
-    shutil.rmtree(trace_dir)
     print(f"[5] utils.profiling.trace wrote a Chrome trace of {trace_bytes:,} bytes")
+    # The same solve under a second profiler session of this process, with
+    # the launch counters beside it: does the profiler name the kernels
+    # inside the CUDA graph's IF bodies in a later session too?
+    reset_counts()
+    with profiling.trace(trace_dir) as prof2:
+        mgpcg.solve(setup.problem, rhs, config=config)
+        torch.cuda.synchronize()
+    shutil.rmtree(trace_dir)
+    events2 = prof2.key_averages()
+    print(f"[5] the same solve in a second profiler session: port kernels by name {port_kernels(events2)}, device "
+          f"{sum(device_us(e) for e in events2 if getattr(e, 'device_type', None) == DeviceType.CUDA) / 1e3:.3f} ms; "
+          f"launch counters (on the device) {read_counts()} [{card}]")
     device_ms, host_ms = {}, {}
     for e in prof.key_averages():
         if getattr(e, "device_type", None) != DeviceType.CUDA:
@@ -2478,6 +2614,217 @@ def main(argv=None) -> int:
           f"solver/mg.py (_finish_hierarchy's one fetch); iterations "
           f"{[fr.iterations for fr in best9]}")
     print(f"[13] phase 13 took {time.perf_counter() - t13:.1f} s [{card}]")
+
+    # ---- 14. the CG loop as a captured CUDA graph against the eager loop -----------------
+    from geometricmultigridpressuresolver_tpu_torch.solver import graph
+
+    t14 = time.perf_counter()
+    k14 = graph.REPLAYS
+    # [14a] The bench projection through the graph and eagerly, residual
+    # histories on: iterations, history and pressure bit for bit, launch
+    # counts exact and equal, host syncs of one solve each.
+    cfg_r = dataclasses.replace(config, record_residuals=True)
+    runs14 = {}
+    for eager in (False, True):
+        reset_counts()
+        graph.STATS.reset()
+        with loop_mode(eager):
+            res14 = free_surface.project(setup, velocity, config=cfg_r)
+            torch.cuda.synchronize()
+        runs14[eager] = (res14, read_counts(), dataclasses.replace(graph.STATS))
+    (res_g, counts_g, stats_g), (res_e, counts_e, _) = runs14[False], runs14[True]
+    it14 = res_g.cg.iterations
+    want14 = expected_launches(hier, cfg_r, it14)
+    hist_bits = torch.equal(torch.nan_to_num(res_g.cg.residual_history, nan=-1.0),
+                            torch.nan_to_num(res_e.cg.residual_history, nan=-1.0))
+    p_bits = torch.equal(res_g.pressure, res_e.pressure)
+    syncs14 = {}
+    for eager in (False, True):
+        with loop_mode(eager):
+            _, sites = count_syncs(lambda: mgpcg.solve(setup.problem, rhs, config=config))
+        syncs14["eager" if eager else "graph"] = (sum(sites.values()), dict(sites))
+    print(f"[14a] {n}^3 projection, graph (K = {k14}) vs eager: iterations {it14} vs {res_e.cg.iterations}; "
+          f"pressure bit-equal {p_bits}, residual history bit-equal {hist_bits}; one capture: "
+          f"{stats_g.capture_seconds * 1e3:.2f} ms capturing, {stats_g.instantiate_seconds * 1e3:.2f} ms "
+          f"instantiating, {stats_g.launches} graph launches, {stats_g.reads} host reads; "
+          f"kernel launches {counts_g} (eager {counts_e}, expected {want14}) [{card}]")
+    for tag, (total, sites) in syncs14.items():
+        print(f"[14a] host syncs per mgpcg.solve, {tag}: {total}, by source line {sites}")
+    require(it14 == res_e.cg.iterations == iters, "[14a] graph and eager iterations differ")
+    require(p_bits and hist_bits, "[14a] the graph's pressure or residual history differs from the eager loop's")
+    require(counts_g == counts_e == want14, "[14a] the graph's launch counts differ from the plan")
+    require(stats_g.captures == 1, "[14a] the projection did not capture exactly once")
+    require(syncs14["graph"][0] <= -(-it14 // k14) + 3,
+            f"[14a] {syncs14['graph'][0]} host syncs per graph solve, over ceil({it14}/{k14}) + 3")
+
+    # [14b] Sizes: graph and eager in turns (g e, e g, g e), best of 3 each;
+    # x and iterations equal; host syncs, peak device memory above what the
+    # run holds, capture ms and launches; one profiled solve each (device
+    # ms, the host's launch calls).
+    sizes14 = sorted({max(n // 4, 16), n // 2, n, 2 * n})
+    for m in sizes14:
+        if m == n:
+            s_m, rhs_m = setup, rhs
+        else:
+            phi_m, vel_m = sdf.splash_scene((m, m, m), device=dev, dtype=torch.float32)
+            s_m = free_surface.build_setup(phi_m, sdf.open_box_weights((m, m, m), device=dev, dtype=torch.float32),
+                                           config=config)
+            rhs_m = bench_rhs(s_m, vel_m)
+            del phi_m, vel_m
+        dofs_m = int(s_m.problem.fine.solvable.sum())
+        for eager in (False, True):
+            timed_solve(s_m.problem, rhs_m, config, eager)  # warm-up
+        best = {}
+        for order in ((False, True), (True, False), (False, True)):
+            for eager in order:
+                got = timed_solve(s_m.problem, rhs_m, config, eager)
+                prev = best.get(eager)
+                best[eager] = got if prev is None else min(prev, got, key=lambda r: r[1])
+                best.setdefault(("events", eager), []).append(got[2])
+        (rg, wg, _, sg), (re_, we, _, _) = best[False], best[True]
+        peak = {}
+        for eager in (False, True):
+            torch.cuda.synchronize()
+            base_mem = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            timed_solve(s_m.problem, rhs_m, config, eager)
+            peak[eager] = (torch.cuda.max_memory_allocated() - base_mem) / 2**30
+        syncs_m = {}
+        for eager in (False, True):
+            with loop_mode(eager):
+                syncs_m[eager] = sum(count_syncs(lambda: mgpcg.solve(s_m.problem, rhs_m, config=config))[1].values())
+        prof_m = {eager: profiled_solve(s_m.problem, rhs_m, config, eager) for eager in (False, True)}
+        ev = {eager: min(best[("events", eager)]) for eager in (False, True)}
+        print(f"[14b] {m}^3 ({dofs_m:,} DOFs, {rg.iterations} iterations): best solve graph {wg:.3f} ms wall, "
+              f"{ev[False]:.3f} ms between CUDA events; eager {we:.3f} ms wall, {ev[True]:.3f} ms between events "
+              f"(each, between events: graph {', '.join(f'{t:.3f}' for t in best[('events', False)])}; eager "
+              f"{', '.join(f'{t:.3f}' for t in best[('events', True)])}) [{card}]")
+        print(f"[14b] {m}^3: host syncs per solve graph {syncs_m[False]}, eager {syncs_m[True]}; capture "
+              f"{sg.capture_seconds * 1e3:.2f} ms + instantiate {sg.instantiate_seconds * 1e3:.2f} ms, "
+              f"{sg.launches} graph launches, {sg.reads} reads, {sg.cache_releases} cache releases; peak device memory "
+              f"above the held {peak[False]:.3f} GiB graph, {peak[True]:.3f} GiB eager [{card}]")
+        for eager in (False, True):
+            pr = prof_m[eager]
+            print(f"[14b] {m}^3 profiled {'eager' if eager else 'graph'} solve: device {pr['device_ms']:.3f} ms in "
+                  f"{pr['device_launches']} device launches and copies, port kernels by name {pr['port_kernels']}, "
+                  f"launch counters (on the device) {pr['counters']}; host launch calls {pr['launch_calls']} [{card}]")
+        if m in (sizes14[0], n):
+            # Where the graph profile puts the device time of the IF bodies:
+            # its device events by key against the eager profile's.
+            kg, ke = prof_m[False]["keys"], prof_m[True]["keys"]
+            moved = sorted(set(kg) | set(ke), key=lambda k: -abs(kg.get(k, (0, 0.0))[1] - ke.get(k, (0, 0.0))[1]))
+            print(f"[14b] {m}^3 device events, graph profile against eager (count, ms), largest differences: "
+                  + "; ".join(f"{k[:90]}: {kg.get(k, (0, 0.0))[0]}, {kg.get(k, (0, 0.0))[1]:.3f} against "
+                              f"{ke.get(k, (0, 0.0))[0]}, {ke.get(k, (0, 0.0))[1]:.3f}" for k in moved[:8]))
+        for eager in (False, True):
+            pr = prof_m[eager]
+            named = [pr["port_kernels"].get(k, 0) for k in ("smooth_chunk_kernel", "cg_step_kernel")]
+            counted = [pr["counters"].get(k, 0) for k in ("smoother", "cg_step")]
+            print(f"[14b] {m}^3 {'eager' if eager else 'graph'}: chunk and CG-step kernels in the profile {named}, "
+                  f"on the device counters {counted}: {'agree' if named == counted else 'DIFFER'}")
+        require(prof_m[False]["counters"] == prof_m[True]["counters"],
+                f"[14b] {m}^3: the profiled graph solve's launch counters differ from the eager solve's")
+        require(rg.iterations == re_.iterations and torch.equal(rg.x, re_.x),
+                f"[14b] {m}^3: the graph's iterations or x differ from the eager loop's")
+        require(rg.converged and sg.captures == 1, f"[14b] {m}^3: the graph solve failed")
+        require(syncs_m[False] <= -(-rg.iterations // k14) + 3, f"[14b] {m}^3: too many host syncs per graph solve")
+        if m == sizes14[-1]:
+            # A finished solve's capture pool goes back to the allocator: the
+            # largest solve, then the smallest, then empty_cache.
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            pools0, held0 = private_pools(), torch.cuda.memory_reserved()
+            mem = {}
+            for tag, (s_x, rhs_x) in ((f"{m}^3", (s_m, rhs_m)), (f"then {sizes14[0]}^3", small14)):
+                timed_solve(s_x.problem, rhs_x, config, False)
+                mem[tag] = torch.cuda.memory_reserved()
+            torch.cuda.empty_cache()
+            mem["then empty_cache"] = torch.cuda.memory_reserved()
+            pools1 = private_pools()
+            print(f"[14b] reserved device memory, GiB: before {held0 / 2**30:.3f}, "
+                  + ", ".join(f"after a graph solve at {k} {v / 2**30:.3f}" if "^3" in k else f"{k} {v / 2**30:.3f}"
+                              for k, v in mem.items())
+                  + f"; private pools holding memory before {len(pools0)}, after {len(pools1)} [{card}]")
+            require(pools1 <= pools0, "[14b] a finished solve's capture pool still holds device memory")
+        if m == sizes14[0]:
+            small14 = (s_m, rhs_m)
+        elif m != n:
+            del s_m, rhs_m
+            torch.cuda.empty_cache()
+    del small14
+
+    # [14c] The K sweep (launches per host read): the bench solve and the
+    # smallest size, each K in turns, best of 3.
+    for m in (n, sizes14[0]):
+        if m == n:
+            s_m, rhs_m = setup, rhs
+        else:
+            phi_m, vel_m = sdf.splash_scene((m, m, m), device=dev, dtype=torch.float32)
+            s_m = free_surface.build_setup(phi_m, sdf.open_box_weights((m, m, m), device=dev, dtype=torch.float32),
+                                           config=config)
+            rhs_m = bench_rhs(s_m, vel_m)
+        sweep = {}
+        try:
+            for _ in range(3):
+                for kk in (1, 4, 8, 16):
+                    graph.REPLAYS = kk
+                    res_k, wall_k, ev_k, st_k = timed_solve(s_m.problem, rhs_m, config, False)
+                    require(res_k.iterations == iters if m == n else res_k.converged, f"[14c] K = {kk} failed")
+                    sweep.setdefault(kk, []).append((wall_k, ev_k, st_k.reads, st_k.launches))
+        finally:
+            graph.REPLAYS = k14
+        print(f"[14c] {m}^3 K sweep, best of 3 in turns: " + "; ".join(
+            f"K = {kk}: {min(r[0] for r in rs):.3f} ms wall, {min(r[1] for r in rs):.3f} ms between events, "
+            f"{rs[0][2]} reads, {rs[0][3]} launches" for kk, rs in sweep.items()) + f" [{card}]")
+
+    # [14d] Every single-process path through the graph: captures per solve.
+    mesh14 = parallel.make_mesh(4, device=dev)
+    paths14 = {
+        "mgpcg.solve": (lambda: mgpcg.solve(setup.problem, rhs, config=config), 1),
+        "free_surface.project": (lambda: free_surface.project(setup, velocity, config=config), 1),
+        "project(mesh=make_mesh(4))": (lambda: free_surface.project(setup, velocity, config=config, mesh=mesh14), 1),
+        "kernel_mode='torch'": (lambda: mgpcg.solve(setup.problem, rhs, config=config_t), 1),
+        "chebyshev smoother": (lambda: mgpcg.solve(setup.problem, rhs, config=dataclasses.replace(
+            config, interior_smoother="chebyshev", chebyshev_degree=3)), 1),
+        "simulate.run, 2 frames": (lambda: simulate.run(phi0, vel0, weights, num_frames=2, config=sim_cfg), 2),
+        "run_fused, 2 frames": (lambda: simulate.run_fused(phi0, vel0, weights, num_frames=2, config=sim_cfg,
+                                                            chunk=2), 2),
+    }
+    seen14 = {}
+    for tag, (fn, solves_n) in paths14.items():
+        graph.STATS.reset()
+        fn()
+        torch.cuda.synchronize()
+        seen14[tag] = (graph.STATS.captures, solves_n)
+    print(f"[14d] graph captures / solves by entry point: "
+          + ", ".join(f"{tag} {c}/{s_}" for tag, (c, s_) in seen14.items()) + f" [{card}]")
+    require(all(c == s_ for c, s_ in seen14.values()), "[14d] a single-process solve did not run as the graph")
+
+    # [14e] run() and run_fused per frame at n^3, graph against eager in
+    # turns (twice), and host syncs per frame of each.
+    frames14 = {}
+    for _ in range(2):
+        for eager in (False, True):
+            for tag in ("run()", "run_fused"):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                with loop_mode(eager):
+                    if tag == "run()":
+                        simulate.run(phi0, vel0, weights, num_frames=frames_n, config=sim_cfg)
+                    else:
+                        simulate.run_fused(phi0, vel0, weights, num_frames=frames_n, config=sim_cfg, chunk=frames_n)
+                    torch.cuda.synchronize()
+                frames14.setdefault((tag, eager), []).append((time.perf_counter() - t0) / frames_n)
+    syncs_f = {}
+    for eager in (False, True):
+        with loop_mode(eager):
+            _, sites = count_syncs(lambda: simulate.run(phi0, vel0, weights, num_frames=frames_n, config=sim_cfg))
+        syncs_f[eager] = sum(sites.values()) / frames_n
+    for (tag, eager), ts in frames14.items():
+        print(f"[14e] {tag} {'eager' if eager else 'graph'}: {min(ts):.4f} s per {n}^3 frame, best of 2 in turns "
+              f"(each: {', '.join(f'{t:.4f}' for t in ts)}) [{card}]")
+    print(f"[14e] run() host syncs per frame: graph {syncs_f[False]:.1f}, eager {syncs_f[True]:.1f}")
+    print(f"[14] phase 14 took {time.perf_counter() - t14:.1f} s [{card}]")
 
     src = "geometricmultigridpressuresolver_tpu_torch/csrc/"
     jax_src = "geometricmultigridpressuresolver_tpu/"

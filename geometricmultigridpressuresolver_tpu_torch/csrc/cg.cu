@@ -189,12 +189,14 @@ struct StepArgs {
   unsigned int* ticket;  // zero between launches
   TileList t;
   CoreWindow win;
+  unsigned long long* launches;  // the launch counter, or null
 };
 
 template <typename T, typename E>
 __global__ void __launch_bounds__(kBlock) cg_step_kernel(const StepArgs<T, E> a) {
   __shared__ T box[kBX * kPlane];
   __shared__ bool last;
+  count_launch(a.launches);
   const Origin o = tile_origin(a.t);
   if (!o.active) {
     if (a.t.n_active == 0 && blockIdx.x == 0 && threadIdx.x == 0) *a.dot = T(0);
@@ -246,11 +248,13 @@ struct ResidualArgs {
   const E* e2;
   S* r;
   TileList t;
+  unsigned long long* launches;  // the launch counter, or null
 };
 
 template <typename T, typename S, typename E>
 __global__ void __launch_bounds__(kBlock) residual_kernel(const ResidualArgs<T, S, E> a) {
   __shared__ T box[kBX * kPlane];
+  count_launch(a.launches);
   const Origin o = tile_origin(a.t);
   if (!o.active) {
     zero_tile(a.r, o, a.t);
@@ -314,7 +318,9 @@ cudaError_t launch_residual(ResidualArgs<T, S, E> a, int n_tiles, cudaStream_t s
 // (lx, ty, tz) tiling, which must be the kernels' (8, 8, 32); partials:
 // n_active entries of the field type; dot: the 0-d output; ticket: one
 // 32-bit word, zero before the launch (the launch leaves it zero).
-// period, lo_x, hi_x, lo_y, hi_y: the dot's core window.
+// period, lo_x, hi_x, lo_y, hi_y: the dot's core window.  launches: the
+// launch counter (one unsigned 64-bit word, raised by one per launch), or
+// null.
 extern "C" int gmg_cg_step(int fdt, int edt, const void* z, const void* p,
                            const void* beta, const void* diag, const void* e0,
                            const void* e1, const void* e2, void* p_out,
@@ -322,7 +328,7 @@ extern "C" int gmg_cg_step(int fdt, int edt, const void* z, const void* p,
                            const void* active, int n_active, const void* dead,
                            int n_dead, int nx, int ny, int nz, int lx, int ty,
                            int tz, int period, int lo_x, int hi_x, int lo_y,
-                           int hi_y, void* stream) {
+                           int hi_y, void* launches, void* stream) {
   using namespace gmg;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   TileList t;
@@ -336,20 +342,21 @@ extern "C" int gmg_cg_step(int fdt, int edt, const void* z, const void* p,
                      static_cast<const E*>(e0), static_cast<const E*>(e1),                   \
                      static_cast<const E*>(e2), static_cast<T*>(p_out),                      \
                      static_cast<T*>(ap_out), static_cast<T*>(partials), static_cast<T*>(dot), \
-                     static_cast<unsigned int*>(ticket), t, win},                            \
+                     static_cast<unsigned int*>(ticket), t, win,                             \
+                     static_cast<unsigned long long*>(launches)},                            \
       n_active + n_dead, s)
   GMG_DISPATCH(GMG_STEP)
 #undef GMG_STEP
 }
 
 // fdt: type of x and diag; sdt: type of b and r (fdt, or bf16 over f32);
-// the tiles as for gmg_cg_step.
+// the tiles and launches as for gmg_cg_step.
 extern "C" int gmg_residual(int fdt, int sdt, int edt, const void* x,
                             const void* b, const void* diag, const void* e0,
                             const void* e1, const void* e2, void* r,
                             const void* active, int n_active, const void* dead,
                             int n_dead, int nx, int ny, int nz, int lx, int ty,
-                            int tz, void* stream) {
+                            int tz, void* launches, void* stream) {
   using namespace gmg;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   TileList t;
@@ -360,7 +367,8 @@ extern "C" int gmg_residual(int fdt, int sdt, int edt, const void* x,
       ResidualArgs<T, S, E>{static_cast<const T*>(x), static_cast<const S*>(b),            \
                             static_cast<const T*>(diag), static_cast<const E*>(e0),        \
                             static_cast<const E*>(e1), static_cast<const E*>(e2),          \
-                            static_cast<S*>(r), t},                                        \
+                            static_cast<S*>(r), t,                                         \
+                            static_cast<unsigned long long*>(launches)},                   \
       n_active + n_dead, s)
 #define GMG_RES(T, E) GMG_RES_ST(T, T, E)
   if (sdt == fdt) {

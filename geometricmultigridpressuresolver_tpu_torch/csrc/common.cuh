@@ -66,6 +66,16 @@ __device__ __forceinline__ bool in_core(const CoreWindow& w, Cell c) {
   return r >= w.lo_x && r < w.hi_x && c.j >= w.lo_y && c.j < w.hi_y;
 }
 
+// A launch counter (ops/_cuda.py `LaunchCounter`): thread 0 of block 0
+// adds one as the kernel starts, so a launch counts where it runs, eagerly
+// or from a replayed CUDA graph, and a launch that never runs (a skipped
+// IF body) does not.  Null: not counted.
+__device__ __forceinline__ void count_launch(unsigned long long* launches) {
+  if (launches != nullptr && blockIdx.x == 0 && blockIdx.y == 0 && blockIdx.z == 0 &&
+      threadIdx.x == 0 && threadIdx.y == 0 && threadIdx.z == 0)
+    atomicAdd(launches, 1ull);
+}
+
 // Block-wide sum in a fixed order; the result is valid in thread 0.
 // Every thread of the block must call it.
 template <typename T>

@@ -37,7 +37,8 @@ namespace gmg {
 template <typename V>
 __global__ void halo_gather_kernel(const V* __restrict__ in, V* __restrict__ out,
                                    int nx, int ny, int nz, int my, int bx,
-                                   int by, int hx, int hy) {
+                                   int by, int hx, int hy, unsigned long long* launches) {
+  count_launch(launches);
   const long long line = blockIdx.x;  // stacked row * byh + lj
   const int bxh = bx + 2 * hx;
   const int byh = by + 2 * hy;
@@ -59,7 +60,8 @@ __global__ void halo_gather_kernel(const V* __restrict__ in, V* __restrict__ out
 template <typename V>
 __global__ void core_scatter_kernel(const V* __restrict__ in, V* __restrict__ out,
                                     int ny, int nz, int my, int bx, int by,
-                                    int hx, int hy) {
+                                    int hx, int hy, unsigned long long* launches) {
+  count_launch(launches);
   const long long line = blockIdx.x;  // i * ny + j
   const int i = int(line / ny);
   const int j = int(line % ny);
@@ -75,7 +77,7 @@ __global__ void core_scatter_kernel(const V* __restrict__ in, V* __restrict__ ou
 template <typename V>
 cudaError_t launch_halo(bool gather, const void* in, void* out, int nx, int ny,
                         int nz, int mx, int my, int bx, int by, int hx, int hy,
-                        cudaStream_t stream) {
+                        unsigned long long* launches, cudaStream_t stream) {
   const long long lines =
       gather ? (long long)mx * my * (bx + 2 * hx) * (long long)(by + 2 * hy)
              : (long long)nx * ny;
@@ -85,11 +87,11 @@ cudaError_t launch_halo(bool gather, const void* in, void* out, int nx, int ny,
   if (gather) {
     halo_gather_kernel<V><<<(unsigned int)lines, threads, 0, stream>>>(
         static_cast<const V*>(in), static_cast<V*>(out), nx, ny, nz, my, bx,
-        by, hx, hy);
+        by, hx, hy, launches);
   } else {
     core_scatter_kernel<V><<<(unsigned int)lines, threads, 0, stream>>>(
         static_cast<const V*>(in), static_cast<V*>(out), ny, nz, my, bx, by,
-        hx, hy);
+        hx, hy, launches);
   }
   return cudaGetLastError();
 }
@@ -100,7 +102,7 @@ cudaError_t launch_halo(bool gather, const void* in, void* out, int nx, int ny,
 // 16-byte copies and each thread keeps 16 bytes in flight.
 cudaError_t dispatch_halo(bool gather, int itemsize, const void* in, void* out,
                           int nx, int ny, int nz, int mx, int my, int bx,
-                          int by, int hx, int hy, cudaStream_t s) {
+                          int by, int hx, int hy, void* launches_p, cudaStream_t s) {
   if (mx <= 0 || my <= 0 || bx * mx != nx || by * my != ny) return cudaErrorInvalidValue;
   if (itemsize != 1 && itemsize != 2 && itemsize != 4 && itemsize != 8) return cudaErrorInvalidValue;
   const long long line_bytes = (long long)nz * itemsize;
@@ -108,12 +110,13 @@ cudaError_t dispatch_halo(bool gather, int itemsize, const void* in, void* out,
   int w = 16;
   while (w > 1 && (line_bytes % w || addr % w)) w /= 2;
   const int n = int(line_bytes / w);
+  auto* launches = static_cast<unsigned long long*>(launches_p);
   switch (w) {
-    case 16: return launch_halo<uint4>(gather, in, out, nx, ny, n, mx, my, bx, by, hx, hy, s);
-    case 8: return launch_halo<uint2>(gather, in, out, nx, ny, n, mx, my, bx, by, hx, hy, s);
-    case 4: return launch_halo<uint32_t>(gather, in, out, nx, ny, n, mx, my, bx, by, hx, hy, s);
-    case 2: return launch_halo<uint16_t>(gather, in, out, nx, ny, n, mx, my, bx, by, hx, hy, s);
-    default: return launch_halo<uint8_t>(gather, in, out, nx, ny, n, mx, my, bx, by, hx, hy, s);
+    case 16: return launch_halo<uint4>(gather, in, out, nx, ny, n, mx, my, bx, by, hx, hy, launches, s);
+    case 8: return launch_halo<uint2>(gather, in, out, nx, ny, n, mx, my, bx, by, hx, hy, launches, s);
+    case 4: return launch_halo<uint32_t>(gather, in, out, nx, ny, n, mx, my, bx, by, hx, hy, launches, s);
+    case 2: return launch_halo<uint16_t>(gather, in, out, nx, ny, n, mx, my, bx, by, hx, hy, launches, s);
+    default: return launch_halo<uint8_t>(gather, in, out, nx, ny, n, mx, my, bx, by, hx, hy, launches, s);
   }
 }
 
@@ -121,20 +124,21 @@ cudaError_t dispatch_halo(bool gather, int itemsize, const void* in, void* out,
 
 // Global (nx, ny, nz) grid -> stacked haloed blocks (mx*my*(bx+2hx),
 // by+2hy, nz); mx*bx = nx, my*by = ny; hx, hy: halo depth on each axis (0
-// on an axis that is not split).
+// on an axis that is not split).  launches: the launch counter (one
+// unsigned 64-bit word, raised by one per launch), or null.
 extern "C" int gmg_halo_gather(int itemsize, const void* in, void* out, int nx,
                                int ny, int nz, int mx, int my, int bx, int by,
-                               int hx, int hy, void* stream) {
+                               int hx, int hy, void* launches, void* stream) {
   return (int)gmg::dispatch_halo(true, itemsize, in, out, nx, ny, nz, mx, my,
-                                 bx, by, hx, hy,
+                                 bx, by, hx, hy, launches,
                                  static_cast<cudaStream_t>(stream));
 }
 
 // Stacked haloed blocks -> the global grid of their cores.
 extern "C" int gmg_core_scatter(int itemsize, const void* in, void* out, int nx,
                                 int ny, int nz, int mx, int my, int bx, int by,
-                                int hx, int hy, void* stream) {
+                                int hx, int hy, void* launches, void* stream) {
   return (int)gmg::dispatch_halo(false, itemsize, in, out, nx, ny, nz, mx, my,
-                                 bx, by, hx, hy,
+                                 bx, by, hx, hy, launches,
                                  static_cast<cudaStream_t>(stream));
 }

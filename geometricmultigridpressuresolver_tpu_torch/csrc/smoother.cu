@@ -103,6 +103,7 @@ struct ChunkArgs {
   int kinds;  // 2 bits per pass, pass 0 lowest: 0 b, 1 r, 2 k, 3 j
   T w, one_minus_w;
   CoreWindow win;
+  unsigned long long* launches;  // the launch counter, or null
 };
 
 __device__ __forceinline__ float load_cg(const float* p) { return __ldcg(p); }
@@ -184,6 +185,7 @@ __device__ __forceinline__ void for_band_cells(const A& a, F f) {
 template <typename T, typename S, typename XI, typename E>
 __global__ void __launch_bounds__(kCoopThreads)
 smooth_chunk_kernel(const ChunkArgs<T, S, XI, E> a) {
+  count_launch(a.launches);
   const bool zero = a.x_in == nullptr;
   // The buffer that holds the current x, and the other one; `agree`: they
   // are equal on the band cells too.
@@ -291,7 +293,7 @@ cudaError_t launch_chunk(int n_pass, int kinds, double damping, const void* x_in
                          const void* band_cells, int n_band, const void* tiles,
                          int n_active, int nx, int ny, int nz, int lx, int ty,
                          int tz, void* partials, int grid, void* barrier,
-                         CoreWindow win, cudaStream_t stream) {
+                         CoreWindow win, void* launches, cudaStream_t stream) {
   ChunkArgs<T, S, XI, E> a;
   a.lx_shift = log2_exact(lx), a.ty_shift = log2_exact(ty), a.tz_shift = log2_exact(tz);
   if (a.lx_shift < 0 || a.ty_shift < 0 || a.tz_shift < 1 || grid <= 0 ||
@@ -321,6 +323,7 @@ cudaError_t launch_chunk(int n_pass, int kinds, double damping, const void* x_in
   a.w = T(damping);
   a.one_minus_w = T(1.0 - damping);
   a.win = win;
+  a.launches = static_cast<unsigned long long*>(launches);
   void* args[] = {&a};
   return cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(smooth_chunk_kernel<T, S, XI, E>),
                                      dim3(grid), dim3(kCoopThreads), args, 0, stream);
@@ -370,7 +373,8 @@ extern "C" int gmg_smooth_chunk_grid(int fdt, int sdt, int xdt, int edt) {
 // for these types (a larger grid cannot be co-resident and the launch
 // fails); partials: grid entries, or null.  barrier: two zeroed 32-bit
 // words.  period, lo_x, hi_x, lo_y, hi_y: the dot's core window (the full
-// grid without a stacked layout).
+// grid without a stacked layout).  launches: the launch counter (one
+// unsigned 64-bit word, raised by one per launch), or null.
 extern "C" int gmg_smooth_chunk(int fdt, int sdt, int xdt, int edt, int n_pass,
                                 int kinds, double damping, const void* x_in,
                                 void* buf_a, void* buf_b, void* x_store,
@@ -382,7 +386,7 @@ extern "C" int gmg_smooth_chunk(int fdt, int sdt, int xdt, int edt, int n_pass,
                                 int ny, int nz, int lx, int ty, int tz,
                                 void* partials, int grid, void* barrier,
                                 int period, int lo_x, int hi_x, int lo_y,
-                                int hi_y, void* stream) {
+                                int hi_y, void* launches, void* stream) {
   using namespace gmg;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (period <= 0 || n_pass < 1 || n_pass > 15 || n_band < 0 || n_active < 0)
@@ -392,7 +396,7 @@ extern "C" int gmg_smooth_chunk(int fdt, int sdt, int xdt, int edt, int n_pass,
   launch_chunk<T, S, XI, E>(n_pass, kinds, damping, x_in, buf_a, buf_b, x_store, r_out, \
                             b, inv_diag, diag, e0, e1, e2, band_cells, n_band, tiles,   \
                             n_active, nx, ny, nz, lx, ty, tz, partials, grid,           \
-                            barrier, win, s)
+                            barrier, win, launches, s)
   GMG_CHUNK_TYPES(GMG_CHUNK)
 #undef GMG_CHUNK
   return (int)cudaErrorInvalidValue;

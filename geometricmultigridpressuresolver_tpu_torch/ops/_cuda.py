@@ -46,14 +46,17 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
     "gmg_smooth_chunk": (
-        [_I] * 6 + [ctypes.c_double] + [_P] * 12 + [_I, _P] + [_I] * 7 + [_P, _I, _P] + [_I] * 5 + [_P], _I
+        [_I] * 6 + [ctypes.c_double] + [_P] * 12 + [_I, _P] + [_I] * 7 + [_P, _I, _P] + [_I] * 5 + [_P, _P], _I
     ),
     "gmg_smooth_chunk_grid": ([_I] * 4, _I),
-    "gmg_cg_step": ([_I, _I] + [_P] * 12 + [_P, _I, _P, _I] + [_I] * 11 + [_P], _I),
-    "gmg_residual": ([_I, _I, _I] + [_P] * 7 + [_P, _I, _P, _I] + [_I] * 6 + [_P], _I),
+    "gmg_cg_step": ([_I, _I] + [_P] * 12 + [_P, _I, _P, _I] + [_I] * 11 + [_P, _P], _I),
+    "gmg_residual": ([_I, _I, _I] + [_P] * 7 + [_P, _I, _P, _I] + [_I] * 6 + [_P, _P], _I),
     "gmg_sum_partials": ([_I, _P, ctypes.c_longlong, _P, _P], _I),
-    "gmg_halo_gather": ([_I, _P, _P] + [_I] * 9 + [_P], _I),
-    "gmg_core_scatter": ([_I, _P, _P] + [_I] * 9 + [_P], _I),
+    "gmg_halo_gather": ([_I, _P, _P] + [_I] * 9 + [_P, _P], _I),
+    "gmg_core_scatter": ([_I, _P, _P] + [_I] * 9 + [_P, _P], _I),
+    "gmg_graph_if": ([_P, _P, ctypes.POINTER(_P)], _I),
+    "gmg_graph_launch": ([_P, _P], _I),
+    "gmg_graph_destroy": ([_P], _I),
 }
 
 
@@ -205,15 +208,59 @@ def check_storage(what: str, compute_dtype: torch.dtype, *stored: torch.Tensor) 
             raise TypeError(f"{what}: mixed field dtypes {compute_dtype} and {t.dtype}")
 
 
+# Slots of the per-device launch-count vector (one per `LaunchCounter`).
+_SLOTS = 16
+_DEVICE_COUNTS: dict[int, torch.Tensor] = {}
+
+
+def device_counts(device: torch.device) -> torch.Tensor:
+    """The launch counts on a CUDA device, one int64 slot per
+    `LaunchCounter`, allocated (zeroed) on first use and never moved, so a
+    captured CUDA graph may hold the slots' addresses.  Not made during a
+    capture, whose memory pool it would otherwise come from."""
+    device = torch.device(device)
+    index = torch.cuda.current_device() if device.index is None else device.index
+    counts = _DEVICE_COUNTS.get(index)
+    if counts is None:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("the launch counts must exist before a CUDA graph capture")
+        counts = _DEVICE_COUNTS[index] = torch.zeros(_SLOTS, dtype=torch.int64, device=torch.device("cuda", index))
+    return counts
+
+
 @dataclasses.dataclass
 class LaunchCounter:
-    """Plain count of kernel launches; a wrapper adds one per launch."""
+    """Count of one kind of kernel launch, kept on the device: the wrapper
+    passes `slot(t)` to each launch and the kernel's first thread adds one
+    to it (csrc/common.cuh `count_launch`).  So a launch counts where it
+    runs, eagerly or from a replayed CUDA graph, and one that a graph skips
+    does not.  `count` reads the slots of every device (a host sync);
+    plain versions on the CPU count nothing."""
 
     name: str
-    count: int = 0
+    index: int = dataclasses.field(init=False)
+
+    def __post_init__(self) -> None:
+        self.index = len(COUNTERS)
+        if self.index >= _SLOTS:
+            raise RuntimeError(f"more than {_SLOTS} launch counters")
+        COUNTERS.append(self)
+
+    def slot(self, t: torch.Tensor) -> ctypes.c_void_p:
+        """The counter's slot on `t`'s device, for a kernel launch."""
+        counts = device_counts(t.device)
+        return ctypes.c_void_p(counts.data_ptr() + self.index * counts.element_size())
+
+    @property
+    def count(self) -> int:
+        return sum(int(counts[self.index]) for counts in _DEVICE_COUNTS.values())
 
     def reset(self) -> None:
-        self.count = 0
+        for counts in _DEVICE_COUNTS.values():
+            counts[self.index] = 0
+
+
+COUNTERS: list[LaunchCounter] = []
 
 
 def check_cuda_operands(what: str, shape, **tensors) -> None:

@@ -128,15 +128,17 @@ def tile_args(tiles) -> tuple:
     return (_cuda.ptr(tiles.active), tiles.active.numel(), _cuda.ptr(tiles.dead), tiles.dead.numel())
 
 
-def search_matvec_dot_torch(z, p, beta, diag, ew0, ew1, ew2, window: CoreWindow | None = None):
-    """Plain version: (p', A p', <p', A p'>), the dot over the window's cores."""
-    pn = z + beta * p
+def search_matvec_dot_torch(z, p, beta, diag, ew0, ew1, ew2, window: CoreWindow | None = None, p_out=None):
+    """Plain version: (p', A p', <p', A p'>), the dot over the window's cores;
+    p' written into `p_out` when given."""
+    pn = z + beta * p if p_out is None else torch.add(z, beta * p, out=p_out)
     ap = diag * pn - neighbor_sum_ew(pn, ew0, ew1, ew2)
     return pn, ap, masked_sum(pn * ap, window)
 
 
 def search_matvec_dot(
-    z, p, beta, diag, ew0, ew1, ew2, mode: str = "auto", window: CoreWindow | None = None, tiles=None
+    z, p, beta, diag, ew0, ew1, ew2, mode: str = "auto", window: CoreWindow | None = None, tiles=None,
+    p_out=None,
 ):
     """Returns (p', A p', <p', A p'>) with p' = z + beta*p.
 
@@ -148,17 +150,22 @@ def search_matvec_dot(
     solvable set (on a stacked grid, the cells with diag != 0); None builds
     them here from diag != 0, a host sync per call.  See the module
     docstring for the precondition under which kernel and plain version
-    agree on every cell.
+    agree on every cell.  `p_out` (a tensor like z, neither z nor p)
+    receives p', so a captured CUDA graph can write it to a fixed buffer;
+    None allocates it.
     """
     if not _cuda.use_kernel(mode, z):
-        return search_matvec_dot_torch(z, p, beta, diag, ew0, ew1, ew2, window)
+        return search_matvec_dot_torch(z, p, beta, diag, ew0, ew1, ew2, window, p_out)
     what = "search_matvec_dot"
     beta = torch.as_tensor(beta, dtype=z.dtype, device=z.device).reshape(())
-    _cuda.check_cuda_operands(what, z.shape, z=z, p=p, diag=diag, ew0=ew0, ew1=ew1, ew2=ew2)
+    _cuda.check_cuda_operands(what, z.shape, z=z, p=p, diag=diag, ew0=ew0, ew1=ew1, ew2=ew2, p_out=p_out)
     _cuda.check_cuda_operands(what, (), beta=beta)
-    _cuda.check_dtypes(what, z, p, diag, beta, ews=(ew0, ew1, ew2))
+    _cuda.check_dtypes(what, z, p, diag, beta, *(() if p_out is None else (p_out,)), ews=(ew0, ew1, ew2))
     tiles = kernel_tiles(what, tiles, diag)
-    p_out = torch.empty_like(z)
+    if p_out is None:
+        p_out = torch.empty_like(z)
+    elif p_out.data_ptr() in (z.data_ptr(), p.data_ptr()):
+        raise ValueError(f"{what}: p_out must not be z or p (the step reads their neighbours)")
     ap_out = torch.empty_like(z)
     # The dot, then one partial per active tile.
     scratch = torch.empty(1 + tiles.active.numel(), dtype=z.dtype, device=z.device)
@@ -171,11 +178,11 @@ def search_matvec_dot(
             _cuda.ptr(ew0), _cuda.ptr(ew1), _cuda.ptr(ew2),
             _cuda.ptr(p_out), _cuda.ptr(ap_out), _cuda.ptr(scratch[1:]), _cuda.ptr(scratch),
             _cuda.ptr(tiles.ticket), *tile_args(tiles), nx, ny, nz, *tiles.core,
-            *window_args(window, z.shape), _cuda.stream_of(z),
+            *window_args(window, z.shape), (STEP_LAUNCHES if window is None else SHARDED_STEP_LAUNCHES).slot(z),
+            _cuda.stream_of(z),
         ),
         "gmg_cg_step",
     )
-    (STEP_LAUNCHES if window is None else SHARDED_STEP_LAUNCHES).count += 1
     return p_out, ap_out, scratch[0]
 
 
@@ -211,9 +218,8 @@ def residual(x, b, diag, ew0, ew1, ew2, mode: str = "auto", tiles=None):
             _cuda.dtype_code(ew0, what),
             _cuda.ptr(x), _cuda.ptr(b), _cuda.ptr(diag),
             _cuda.ptr(ew0), _cuda.ptr(ew1), _cuda.ptr(ew2), _cuda.ptr(r),
-            *tile_args(tiles), nx, ny, nz, *tiles.core, _cuda.stream_of(x),
+            *tile_args(tiles), nx, ny, nz, *tiles.core, RESIDUAL_LAUNCHES.slot(x), _cuda.stream_of(x),
         ),
         "gmg_residual",
     )
-    RESIDUAL_LAUNCHES.count += 1
     return r

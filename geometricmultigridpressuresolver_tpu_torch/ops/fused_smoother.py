@@ -213,15 +213,30 @@ class Tiles(NamedTuple):
     ticket: torch.Tensor  # int32, (1,)
 
 
-def level_tiles(cells: torch.Tensor, band: torch.Tensor, depth: int | None = None) -> Tiles:
+def compact(mask: torch.Tensor, count: int) -> torch.Tensor:
+    """The flat indices of the True entries of bool `mask`, ascending, int32
+    (``flatnonzero``), given their `count`: no host sync."""
+    flat = mask.reshape(-1)
+    slot = torch.where(flat, torch.cumsum(flat, 0, dtype=torch.int32) - 1, count).long()
+    out = torch.empty(count + 1, dtype=torch.int32, device=flat.device)
+    out.scatter_(0, slot, torch.arange(flat.numel(), dtype=torch.int32, device=flat.device))
+    return out[:count]  # the spare last slot took every False entry
+
+
+def level_tiles(cells: torch.Tensor, band: torch.Tensor, depth: int | None = None,
+                n_active: int | None = None) -> Tiles:
     """`Tiles` of a level whose cells a kernel can change are `cells` (bool)
     and whose band cells are the list `band` (`band_cells`), over
-    `CHUNK_TILE`.  `depth` overrides `CHUNK_DEPTH`."""
+    `CHUNK_TILE`.  `depth` overrides `CHUNK_DEPTH`.  `n_active` is the
+    number of active tiles (`level_counts`), read here when None (a host
+    sync)."""
     depth = CHUNK_DEPTH if depth is None else int(depth)
     occ = tile_occupancy(cells, CHUNK_TILE).reshape(-1)
-    ids = torch.arange(occ.numel(), dtype=torch.int32, device=occ.device)
+    if n_active is None:
+        n_active = int(occ.sum())
     ticket = torch.zeros(1, dtype=torch.int32, device=occ.device)
-    return Tiles(tuple(cells.shape), depth, CHUNK_TILE, ids[occ], band, ids[~occ], ticket)
+    return Tiles(tuple(cells.shape), depth, CHUNK_TILE, compact(occ, n_active), band,
+                 compact(~occ, occ.numel() - n_active), ticket)
 
 
 class LevelBlocks(NamedTuple):
@@ -236,10 +251,17 @@ class LevelBlocks(NamedTuple):
     tiles: Tiles
 
 
-def band_cells(band: torch.Tensor) -> torch.Tensor:
-    """The plain band-list builder: flat indices of the band cells, int32,
-    ascending (``flatnonzero``)."""
-    return torch.nonzero(band.reshape(-1)).reshape(-1).to(torch.int32)
+def band_cells(band: torch.Tensor, count: int | None = None) -> torch.Tensor:
+    """Flat indices of the band cells, int32, ascending (``flatnonzero``);
+    `count` of them (`level_counts`), read here when None (a host sync)."""
+    mask = band != 0
+    return compact(mask, int(mask.sum()) if count is None else count)
+
+
+def level_counts(c: LevelCoeffs) -> torch.Tensor:
+    """(band cells, active tiles) of a level as a device tensor, so that
+    the lists of several levels cost one host read (`hierarchy_block_lists`)."""
+    return torch.stack((torch.count_nonzero(c.band), tile_occupancy(c.solvable, CHUNK_TILE).sum()))
 
 
 def narrow_coeffs(c: LevelCoeffs) -> LevelCoeffs:
@@ -252,16 +274,19 @@ def narrow_coeffs(c: LevelCoeffs) -> LevelCoeffs:
     return c._replace(inv_diag=inv, diag=diag)
 
 
-def level_blocks(c: LevelCoeffs, config, field_dtype=None, depth: int | None = None) -> LevelBlocks:
+def level_blocks(c: LevelCoeffs, config, field_dtype=None, depth: int | None = None,
+                 counts=None) -> LevelBlocks:
     """`LevelBlocks` of one level for fields stored as `field_dtype`; the
     active tiles are those whose core holds a solvable cell.  `depth`
-    overrides `CHUNK_DEPTH`."""
-    band = band_cells(c.band)
+    overrides `CHUNK_DEPTH`.  `counts` are the level's `level_counts` on
+    the host, read here when None (a host sync)."""
+    n_band, n_active = level_counts(c).tolist() if counts is None else counts
+    band = band_cells(c.band, n_band)
     cells = None
     if config.pallas_band_strip and "b" in schedule_for(config, True) and band.numel():
         cells = band
     narrow = narrow_coeffs(c) if field_dtype == NARROW_DTYPE else None
-    return LevelBlocks(cells, narrow, level_tiles(c.solvable, band, depth))
+    return LevelBlocks(cells, narrow, level_tiles(c.solvable, band, depth, n_active))
 
 
 def _results(x, r, dot, emit_residual: bool, emit_dot: bool):
@@ -291,7 +316,7 @@ def band_pass_torch(x, out, b, c: LevelCoeffs, cells, damping: float):
         lo = torch.where(has_lo, idx - stride, idx)
         s = s + torch.where(has_up, e[idx] * flat[up], 0.0)
         s = s + torch.where(has_lo, e[lo] * flat[lo], 0.0)
-    w = torch.tensor(damping, dtype=x.dtype, device=x.device)
+    w = torch.full((), damping, dtype=x.dtype, device=x.device)  # a fill: capturable
     a = 1.0 - w
     wb = w * c.inv_diag.reshape(-1)[idx].to(x.dtype)
     bb = b.reshape(-1)[idx].to(x.dtype)
@@ -440,11 +465,10 @@ def smooth_level(
                 _cuda.ptr(c.ew1), _cuda.ptr(c.ew2), _cuda.ptr(tiles.band), tiles.band.numel(),
                 _cuda.ptr(tiles.active), tiles.active.numel(), nx, ny, nz, *tiles.core,
                 _cuda.ptr(partials), grid, _cuda.ptr(barrier),
-                *fused_cg.window_args(window, b.shape), stream,
+                *fused_cg.window_args(window, b.shape), counter.slot(b), stream,
             ),
             "gmg_smooth_chunk",
         )
-        counter.count += 1
         src = buf_a
         if partials is not None:
             dot = fused_cg.sum_partials(partials)

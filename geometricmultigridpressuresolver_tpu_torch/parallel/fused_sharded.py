@@ -95,11 +95,13 @@ def _haloed(t: torch.Tensor, geom: halo.BlockGeometry, mesh, mode: str) -> torch
     return halo.halo_gather(t, geom, mode)
 
 
-def _core(t: torch.Tensor, geom: halo.BlockGeometry, mesh, mode: str) -> torch.Tensor:
-    """The inverse of `_haloed`: the global grid, or this rank's block."""
+def _core(t: torch.Tensor, geom: halo.BlockGeometry, mesh, mode: str, out=None) -> torch.Tensor:
+    """The inverse of `_haloed`: the global grid, or this rank's block
+    (written into `out` when given)."""
     if isinstance(mesh, DistMesh):
-        return halo.core_of(t, geom)
-    return halo.core_scatter(t, geom, mode)
+        core = halo.core_of(t, geom)
+        return core if out is None else out.copy_(core)
+    return halo.core_scatter(t, geom, mode, out)
 
 
 def _total(dot: torch.Tensor, geom: halo.BlockGeometry, mesh) -> torch.Tensor:
@@ -176,7 +178,8 @@ def stacked_cg_tiles(prehaloed_cg: tuple) -> fused_smoother.Tiles:
     return fused_smoother.level_tiles(diag != 0, torch.zeros(0, dtype=torch.int32, device=diag.device))
 
 
-def cg_step_sharded(z, p, beta, c: LevelCoeffs, config, mesh, prehaloed_cg=None, tiles=None, shape=None):
+def cg_step_sharded(z, p, beta, c: LevelCoeffs, config, mesh, prehaloed_cg=None, tiles=None, shape=None,
+                    p_out=None):
     """Block-mesh CG step: (p' = z + beta p, A p', <p', A p'>).
 
     Gathers z and p into the stacked layout (across ranks: exchanges this
@@ -185,7 +188,8 @@ def cg_step_sharded(z, p, beta, c: LevelCoeffs, config, mesh, prehaloed_cg=None,
     over the cores in a fixed order (across ranks, then over the ranks in
     rank order).  `prehaloed_cg` is `prehalo_cg_coeffs(c, mesh)` and
     `tiles` `stacked_cg_tiles(prehaloed_cg)` (built here when None);
-    `shape` is the level's global shape (needed across ranks).
+    `shape` is the level's global shape (needed across ranks); p' is
+    scattered into `p_out` when given.
     """
     mode = config.kernel_mode
     geom = _geometry(mesh, z, shape)
@@ -195,7 +199,7 @@ def cg_step_sharded(z, p, beta, c: LevelCoeffs, config, mesh, prehaloed_cg=None,
         _haloed(z, geom, mesh, mode), _haloed(p, geom, mesh, mode), beta,
         *prehaloed_cg, mode=mode, window=geom.window, tiles=tiles,
     )
-    return _core(pn, geom, mesh, mode), _core(ap, geom, mesh, mode), _total(dot, geom, mesh)
+    return _core(pn, geom, mesh, mode, p_out), _core(ap, geom, mesh, mode), _total(dot, geom, mesh)
 
 
 def residual_sharded(x, b, prehaloed_cg: tuple, tiles, mesh, shape=None, mode: str = "auto"):

@@ -134,12 +134,16 @@ def halo_gather_torch(t: torch.Tensor, geom: BlockGeometry) -> torch.Tensor:
     return out
 
 
-def core_scatter_torch(t: torch.Tensor, geom: BlockGeometry) -> torch.Tensor:
-    """Plain version: the global grid of the blocks' cores."""
+def core_scatter_torch(t: torch.Tensor, geom: BlockGeometry, out=None) -> torch.Tensor:
+    """Plain version: the global grid of the blocks' cores (into `out`
+    when given)."""
     (mx, my), (bx, by), (hx, hy) = geom.blocks, geom.core, geom.halo
     blocks = t.reshape(mx, my, bx + 2 * hx, by + 2 * hy, geom.shape[2])
-    cores = blocks[:, :, hx:hx + bx, hy:hy + by]
-    return cores.permute(0, 2, 1, 3, 4).reshape(geom.shape)
+    cores = blocks[:, :, hx:hx + bx, hy:hy + by].permute(0, 2, 1, 3, 4)
+    if out is None:
+        return cores.reshape(geom.shape)
+    out.view(mx, bx, my, by, geom.shape[2]).copy_(cores)
+    return out
 
 
 def _launch(name: str, t: torch.Tensor, out: torch.Tensor, geom: BlockGeometry) -> None:
@@ -148,11 +152,10 @@ def _launch(name: str, t: torch.Tensor, out: torch.Tensor, geom: BlockGeometry) 
     _cuda.check(
         getattr(_cuda.library(), name)(
             _ITEMSIZES[t.dtype], _cuda.ptr(t), _cuda.ptr(out),
-            nx, ny, nz, mx, my, bx, by, hx, hy, _cuda.stream_of(t),
+            nx, ny, nz, mx, my, bx, by, hx, hy, HALO_LAUNCHES.slot(t), _cuda.stream_of(t),
         ),
         name,
     )
-    HALO_LAUNCHES.count += 1
 
 
 def halo_gather(t: torch.Tensor, geom: BlockGeometry, mode: str = "auto") -> torch.Tensor:
@@ -165,12 +168,18 @@ def halo_gather(t: torch.Tensor, geom: BlockGeometry, mode: str = "auto") -> tor
     return out
 
 
-def core_scatter(t: torch.Tensor, geom: BlockGeometry, mode: str = "auto") -> torch.Tensor:
-    """Stacked haloed blocks -> the global grid of their cores."""
+def core_scatter(t: torch.Tensor, geom: BlockGeometry, mode: str = "auto", out=None) -> torch.Tensor:
+    """Stacked haloed blocks -> the global grid of their cores, written
+    into `out` (a contiguous grid of t's dtype) when given."""
     if not _cuda.use_kernel(mode, t):
-        return core_scatter_torch(t, geom)
+        return core_scatter_torch(t, geom, out)
     _check("core_scatter", t, geom.stacked_shape)
-    out = torch.empty(geom.shape, dtype=t.dtype, device=t.device)
+    if out is None:
+        out = torch.empty(geom.shape, dtype=t.dtype, device=t.device)
+    else:
+        _check("core_scatter", out, geom.shape)
+        if out.dtype != t.dtype:
+            raise TypeError(f"core_scatter: out is {out.dtype}, not {t.dtype}")
     _launch("gmg_core_scatter", t, out, geom)
     return out
 

@@ -527,6 +527,12 @@ def hierarchy_block_lists(hier: MGHierarchy, config: SolverConfig, mesh=None):
     shapes = level_shapes(hier)
     if isinstance(mesh, DistMesh):
         _check_rank_levels(shapes, flags, mesh)
+    # The single-device levels' list lengths in one host read.
+    single = [lv for lv, c in enumerate(hier.levels) if lv in smoothed and flags[lv] == "single"]
+    counts = {}
+    if single:
+        read = torch.stack([fused_smoother.level_counts(hier.levels[lv]) for lv in single]).tolist()
+        counts = dict(zip(single, read))
     out = []
     for level, c in enumerate(hier.levels):
         if level not in smoothed or flags[level] == "plain":
@@ -534,7 +540,7 @@ def hierarchy_block_lists(hier: MGHierarchy, config: SolverConfig, mesh=None):
         elif flags[level] == "sharded":
             out.append(fused_sharded.sharded_blocks(c, mesh, config.kernel_mode, shapes[level]))
         else:
-            out.append(fused_smoother.level_blocks(c, config, fdts[level]))
+            out.append(fused_smoother.level_blocks(c, config, fdts[level], counts=counts[level]))
     return tuple(out)
 
 

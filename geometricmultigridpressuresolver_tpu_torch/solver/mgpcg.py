@@ -10,7 +10,10 @@ mesh (`solve(..., mesh=)`, `parallel.mesh.BlockMesh`) the V-cycle runs the
 block-mesh smoother on the levels it flags "sharded", and when the fine
 level is one of them the CG step is `parallel.fused_sharded.cg_step_sharded`
 (JAX mgpcg.py:173-193).  `solve(..., interrupt_check=)` passes a host
-callback to the CG loop (`solver.cg`), checked once per iteration.
+callback to the CG loop (`solver.cg`), checked once per iteration.  On
+a CUDA device in one process the loop runs as a captured CUDA graph with
+its exit test on the device (`solver.graph`, the JAX package's
+`lax.while_loop`); across ranks it runs eagerly (`run_stages`).
 `solve_stages` builds the loop's operators once per solve; the stage
 profiler (`utils.profiling.instrumented_solve`) runs the same ones.
 
@@ -36,6 +39,7 @@ from geometricmultigridpressuresolver_tpu_torch.ops import fused_cg, fused_smoot
 from geometricmultigridpressuresolver_tpu_torch.parallel import distributed, fused_sharded, sharding
 from geometricmultigridpressuresolver_tpu_torch.parallel.mesh import DistMesh
 from geometricmultigridpressuresolver_tpu_torch.solver import cg as cg_mod
+from geometricmultigridpressuresolver_tpu_torch.solver import graph
 from geometricmultigridpressuresolver_tpu_torch.solver import mg as mg_mod
 
 
@@ -190,7 +194,7 @@ def fine_residual(problem: PoissonProblem, config: SolverConfig, tiles=None, mes
 class SolveStages(NamedTuple):
     """The per-solve operators of `solve`'s CG loop (`solve_stages`)."""
 
-    step_p: Callable            # (z, p, beta) -> (p', A p', <p', A p'>)
+    step_p: Callable            # (z, p, beta, p_out=None) -> (p', A p', <p', A p'>)
     residual: Callable          # (x, b) -> masked b - A x
     preconditioner: Callable    # r -> z
     preconditioner_dot: Callable | None  # r -> (z, <r, z>); None without a V-cycle
@@ -224,15 +228,16 @@ def solve_stages(problem: PoissonProblem, config: SolverConfig, mesh=None) -> So
         halo_tiles = fused_sharded.stacked_cg_tiles(fine_halo)
         prehaloed = (fine_halo, halo_tiles)
 
-        def step_p(z, p, beta):
+        def step_p(z, p, beta, p_out=None):
             return fused_sharded.cg_step_sharded(
-                z, p, beta, fine, config, mesh, prehaloed_cg=fine_halo, tiles=halo_tiles, shape=shape0
+                z, p, beta, fine, config, mesh, prehaloed_cg=fine_halo, tiles=halo_tiles, shape=shape0,
+                p_out=p_out,
             )
     else:
-        def step_p(z, p, beta):
+        def step_p(z, p, beta, p_out=None):
             pn, ap, dot = fused_cg.search_matvec_dot(
                 z, p, beta, fine.diag, fine.ew0, fine.ew1, fine.ew2, mode=config.kernel_mode,
-                tiles=tiles,
+                tiles=tiles, p_out=p_out,
             )
             # A whole fine level across ranks: rank 0's dot on every rank.
             return pn, ap, dot if layout is None else layout.ranks.sum(dot)
@@ -308,7 +313,8 @@ def run_stages(
 ) -> cg_mod.CGResult:
     """The CG loop of `solve` on operators built by `solve_stages`, for
     inputs from `solve_inputs` (a caller that reuses the operators, as
-    `free_surface.project` does for its recomputed residual)."""
+    `free_surface.project` does for its recomputed residual), driven as
+    `loop_runner` says."""
     return cg_mod.solve_pcg_fused(
         stages.step_p,
         stages.residual,
@@ -323,4 +329,16 @@ def run_stages(
         record_residuals=config.record_residuals,
         interrupt_check=interrupt_check,
         ranks=stages.ranks,
+        run_loop=loop_runner(stages, rhs),
     )
+
+
+def loop_runner(stages: SolveStages, rhs: torch.Tensor):
+    """The rule for the CG loop: on a CUDA device in one process (a
+    one-card `BlockMesh` and ``kernel_mode="torch"`` included) it runs as a
+    captured CUDA graph with its exit test on the device (`graph.run`);
+    across ranks (`stages.ranks`, a `DistMesh`) and on the CPU it runs
+    eagerly, the test on the host (None: `cg.run_eager`).  gloo's
+    collectives cannot be captured, and NCCL's capture cannot be tested on
+    one card."""
+    return graph.run if rhs.is_cuda and stages.ranks is None else None

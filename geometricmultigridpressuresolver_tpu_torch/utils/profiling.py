@@ -167,6 +167,7 @@ def instrumented_solve(
     with timer.stage("norm(b)"):
         b = project(rhs.to(dtype))
         loop = cg_mod._Loop(b, solvable, config.tolerance, config.max_iterations, False)
+        loop.fetch()
     if loop.zero_rhs:
         if print_stats:
             printer("zero RHS: returning zero solution")

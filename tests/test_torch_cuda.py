@@ -865,18 +865,21 @@ def test_two_ranks_on_the_card_kernel_vs_plain(device):
 
 
 def test_two_ranks_on_the_card_partitioned_projection(device):
-    """Two ranks ((2, 1, 1), gloo, both on this card) build the 40^3 splash
+    """Two ranks ((2, 1, 1), gloo, both on this card) build the 96^3 splash
     from their base blocks (`build_setup(mesh=, base_shape=)`) and project
     it in fp64 (L0 sharded): each rank's blocks of the problem equal those
     of the same world's plain run (kernel_mode="torch") bit for bit, and
-    the iterations, pressure and velocity match it to 1e-12."""
+    the iterations, pressure and velocity match it to 1e-12.  96^3 has 4
+    levels: on a mesh that does not split y, L0 may run sharded only from
+    4 levels on (the JAX package's rule, `fused_sharded.sharded_eligible`),
+    so the 40^3 splash (3 levels) keeps L0 whole."""
     from geometricmultigridpressuresolver_tpu_torch.config import SolverConfig
     from geometricmultigridpressuresolver_tpu_torch.parallel import dryrun
 
     job = "geometricmultigridpressuresolver_tpu_torch.parallel.dryrun:project_job"
     runs = {
         mode: dryrun.launch(job, 2, "gloo", "cuda", dict(
-            n=40, fields=True, print_line=False, config=SolverConfig(tolerance=1e-8, kernel_mode=mode)), timeout=300)
+            n=96, fields=True, print_line=False, config=SolverConfig(tolerance=1e-8, kernel_mode=mode)), timeout=300)
         for mode in ("auto", "torch")
     }
     for kernel, plain in zip(runs["auto"], runs["torch"]):
@@ -914,3 +917,137 @@ def test_mm_transfers_ieee_with_tf32_on(device):
         torch.backends.cuda.matmul.allow_tf32 = saved
     assert _rel(r_mm, transfer.restrict(fine, coarse_solv)) <= 1e-6
     assert _rel(p_mm, transfer.prolong_add(fine, coarse, fine_solv)) <= 1e-6
+
+
+def _graph_case(device, variant):
+    """(setup, rhs, config, mesh) of a graph-loop case: the 64^3 splash
+    (the block mesh: 40^3, whose L0 the mesh splits), residual histories on."""
+    dtype = torch.float64 if variant == "fp64" else torch.float32
+    kw = dict(solve_dtype=dtype, tolerance=1e-5 if dtype == torch.float32 else 1e-9, record_residuals=True,
+              mg_ew_dtype=torch.bfloat16 if dtype == torch.float32 else None)
+    kw.update({"bf16_fields": dict(mg_field_dtype=torch.bfloat16), "chebyshev": dict(interior_smoother="chebyshev"),
+               "torch_mode": dict(kernel_mode="torch")}.get(variant, {}))
+    n = 40 if variant == "block_mesh" else 64
+    cfg = SolverConfig(**kw)
+    phi, velocity = sdf.splash_scene((n,) * 3, device=device, dtype=dtype)
+    setup = free_surface.build_setup(phi, sdf.open_box_weights((n,) * 3, device=device, dtype=dtype), config=cfg)
+    rhs = free_surface.embed_window(
+        free_surface.negative_divergence(setup.liquid_mask, velocity, setup.weights),
+        setup.window_start, setup.base_pads, setup.expanded_shape,
+    )
+    mesh = parallel.make_mesh(4, device=device) if variant == "block_mesh" else None
+    if mesh is not None:
+        assert mg.level_flags(setup.problem.hier, cfg, mesh)[0] == "sharded"
+    return setup, rhs, cfg, mesh
+
+
+def _counted_solve(setup, rhs, cfg, mesh, **kw):
+    from geometricmultigridpressuresolver_tpu_torch.ops import _cuda
+    from geometricmultigridpressuresolver_tpu_torch.solver import graph
+
+    for c in _cuda.COUNTERS:
+        c.reset()
+    graph.STATS.reset()
+    result = mgpcg.solve(setup.problem, rhs, config=cfg, mesh=mesh, **kw)
+    torch.cuda.synchronize()
+    return result, {c.name: c.count for c in _cuda.COUNTERS}, dict(vars(graph.STATS))
+
+
+def _same_bits(a, b) -> bool:
+    return torch.equal(torch.nan_to_num(a, nan=-7.0), torch.nan_to_num(b, nan=-7.0)) and bool(
+        (a.isnan() == b.isnan()).all())
+
+
+@pytest.mark.parametrize("variant", ["fp32", "fp64", "bf16_fields", "block_mesh", "chebyshev", "torch_mode"])
+def test_graph_loop_bit_equal_to_eager(device, variant, monkeypatch):
+    """The solve through the captured graph (one capture, ceil((n - 1) / K)
+    host reads) gives the eager loop's iterations, x and residual history
+    bit for bit, with the same kernel launch counts."""
+    from geometricmultigridpressuresolver_tpu_torch.solver import graph
+
+    setup, rhs, cfg, mesh = _graph_case(device, variant)
+    assert mgpcg.loop_runner(mgpcg.solve_stages(setup.problem, cfg, mesh), rhs) is graph.run
+    got, launches, stats = _counted_solve(setup, rhs, cfg, mesh)
+    with monkeypatch.context() as m:
+        m.setattr(mgpcg, "loop_runner", lambda stages, rhs: None)
+        want, want_launches, want_stats = _counted_solve(setup, rhs, cfg, mesh)
+    assert want_stats["captures"] == 0 and stats["captures"] == 1
+    assert stats["reads"] == max(1, math.ceil((got.iterations - 1) / graph.REPLAYS))
+    assert stats["launches"] == graph.REPLAYS * stats["reads"]
+    assert got.iterations == want.iterations > 1 and got.converged and want.converged
+    assert torch.equal(got.x, want.x)
+    assert got.relative_residual == want.relative_residual
+    assert _same_bits(got.residual_history, want.residual_history)
+    assert launches == want_launches
+    if variant == "torch_mode":
+        assert sum(launches.values()) == 0
+    else:
+        assert launches["cg_step" if mesh is None else "cg_step_sharded"] == got.iterations
+
+
+def test_graph_loop_interrupt_matches_eager(device, monkeypatch):
+    """An interrupt_check stops the graph loop (one launch per host read)
+    at the iteration it stops the eager loop, with the same iterate."""
+    setup, rhs, cfg, mesh = _graph_case(device, "fp32")
+    runs = []
+    for eager in (False, True):
+        seen = []
+
+        def stop_at_3(it, seen=seen):
+            seen.append(it)
+            return it >= 3
+
+        with monkeypatch.context() as m:
+            if eager:
+                m.setattr(mgpcg, "loop_runner", lambda stages, rhs: None)
+            result, launches, stats = _counted_solve(setup, rhs, cfg, mesh, interrupt_check=stop_at_3)
+        runs.append((result, launches, stats, seen))
+    (got, launches, stats, seen), (want, want_launches, _, want_seen) = runs
+    assert got.iterations == want.iterations == 3 and not got.converged
+    assert seen == want_seen == [1, 2, 3]
+    assert stats["reads"] == 3 and stats["launches"] == 2
+    assert torch.equal(got.x, want.x) and launches == want_launches
+
+
+def _private_pools() -> set:
+    """The ids of the private (CUDA graph) memory pools that hold a segment."""
+    segments = torch.cuda.memory_snapshot()
+    assert all("segment_pool_id" in seg for seg in segments)
+    return {tuple(seg["segment_pool_id"]) for seg in segments} - {(0, 0)}
+
+
+def test_graph_pool_released_after_solve(device):
+    """A solve's capture pool goes back to the caching allocator when the
+    solve ends: after `empty_cache` no segment is left in a private pool the
+    solve made, so later allocations can use that memory."""
+    from geometricmultigridpressuresolver_tpu_torch.solver import graph
+
+    setup, rhs, cfg, mesh = _graph_case(device, "fp32")
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    before = _private_pools()
+    graph.STATS.reset()
+    assert mgpcg.solve(setup.problem, rhs, config=cfg).converged
+    assert graph.STATS.captures == 1
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    assert _private_pools() <= before
+
+
+def test_graph_capture_raises(device, monkeypatch):
+    """A failed capture raises (here: a host read inside the iteration);
+    the loop does not fall back to eager launches."""
+    from geometricmultigridpressuresolver_tpu_torch.solver import cg
+
+    setup, rhs, cfg, mesh = _graph_case(device, "fp32")
+    tail = cg.FusedCG.tail
+
+    def reading_tail(self, s):
+        tail(self, s)
+        float(s.rho)  # a sync: illegal while capturing
+
+    monkeypatch.setattr(cg.FusedCG, "tail", reading_tail)
+    with pytest.raises(RuntimeError):
+        mgpcg.solve(setup.problem, rhs, config=cfg)
+    monkeypatch.undo()
+    assert mgpcg.solve(setup.problem, rhs, config=cfg).converged  # the card is usable again
