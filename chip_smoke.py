@@ -155,6 +155,18 @@ Phases (any failure exits non-zero and prints no result line):
      single-process entry point (solve, project, the block mesh, the plain
      path, Chebyshev, run(), run_fused); [14e] run() and run_fused seconds
      per frame, graph against eager in turns, and host syncs per frame.
+ 15. the fused frame chunk as one captured CUDA graph per frozen geometry
+     (simulate.run_fused on the card: graph.FrameGraph, the CG loop a WHILE
+     node; every earlier run_fused call already ran it): 8 frames in
+     chunks of 4 at 256^3 in the bench configuration, [15a] against the
+     same frames run eagerly (graph.EmulatedFrame): iterations equal,
+     fields bit-equal, device launch counts equal, one frame capture, one
+     launch per frame, one host read per chunk, capture and instantiate
+     ms, peak memory and the frame pool; [15b] no host sync inside a frame
+     launch (sync debug mode "error") and the call's syncs by source line;
+     [15c] against run() (iterations +-1, pressure 1e-3); [15d] seconds
+     per frame graph and eager in turns, and a chunk's launches alone (CUDA
+     events, host issue time); [15e] advection's device ms.
 Every kernel's entry in the kernels JSON has its launches on its path (and
 on phase 10's blocks, `launches_test_node`, and per rank of [11b],
 `launches_distributed`), its
@@ -637,6 +649,12 @@ def n_tiles(tiles) -> int:
     return gx * gy * gz
 
 
+def lengths(tiles) -> tuple[int, int, int]:
+    """(active tiles, dead tiles, band cells) of a `Tiles`: its device
+    `counts`, read here (a host sync)."""
+    return tuple(int(v) for v in tiles.counts.tolist())
+
+
 def active_bytes(cells: int, inputs, out_cells: int, outputs) -> int:
     """Bytes a function must move when it reads each input only on the
     `cells` cells that need it (the solvable ones) and writes each output on
@@ -736,15 +754,20 @@ def rounded_once_reference(kind: str, *args):
 def eager_cg_loop():
     """Inside the block the CG loop runs eagerly, the host testing `running`
     after every iteration (`solver.cg.run_eager`), where it would run as
-    the captured graph (`mgpcg.loop_runner`'s rule)."""
-    from geometricmultigridpressuresolver_tpu_torch.solver import mgpcg
+    the captured graph (`mgpcg.loop_runner`'s rule), and run_fused's frames
+    run eagerly (`graph.EmulatedFrame`, the host testing `running` after
+    every iteration) where each would be one captured graph
+    (`simulate.frame_runner`'s rule)."""
+    from geometricmultigridpressuresolver_tpu_torch.models import simulate
+    from geometricmultigridpressuresolver_tpu_torch.solver import graph, mgpcg
 
-    saved = mgpcg.loop_runner
+    saved = mgpcg.loop_runner, simulate.frame_runner
     mgpcg.loop_runner = lambda stages, rhs: None
+    simulate.frame_runner = lambda device: graph.EmulatedFrame
     try:
         yield
     finally:
-        mgpcg.loop_runner = saved
+        mgpcg.loop_runner, simulate.frame_runner = saved
 
 
 def loop_mode(eager: bool):
@@ -919,13 +942,13 @@ def main(argv=None) -> int:
     blocks = mg.hierarchy_block_lists(hier, config)
     for lv in mg.smoothed_levels(hier):
         tiles = blocks[lv].tiles
-        nb, na, nt = tiles.band.numel(), tiles.active.numel(), n_tiles(tiles)
+        (na, _, nb), nt = lengths(tiles), n_tiles(tiles)
         print(f"[3] L{lv} {tuple(hier.levels[lv].shape)}: {nb:,} band cells, "
               f"{nb / hier.levels[lv].diag.numel():.2%} of the level; chunk depth {tiles.depth}, "
               f"tile {tiles.core}, active tiles {na}/{nt} = {na / nt:.3f}")
     cg_tiles = mgpcg.fine_tiles(setup.problem, blocks)
     print(f"[3] CG step and residual at L0: tile {cg_tiles.core}, active tiles "
-          f"{cg_tiles.active.numel()}/{n_tiles(cg_tiles)} = {cg_tiles.active.numel() / n_tiles(cg_tiles):.3f} "
+          f"{lengths(cg_tiles)[0]}/{n_tiles(cg_tiles)} = {lengths(cg_tiles)[0] / n_tiles(cg_tiles):.3f} "
           f"(the level's chunk-kernel tiles, built once per solve)")
     print(f"[3] liquid DOFs {ndof:,}; iterations {iters}; relative residual "
           f"{result.cg.relative_residual:.3e}; recomputed {float(result.residual_rel_l2):.3e} "
@@ -1132,7 +1155,7 @@ def main(argv=None) -> int:
     # bound_ms): each input read once on the solvable cells, each output
     # written once on every cell.  Over the whole window (`bounds_window`):
     # each input read once and each output written once on every cell.
-    nb0, n0 = blk0.band_cells.numel(), c0.diag.numel()
+    nb0, n0 = lengths(blk0.tiles)[2], c0.diag.numel()
     ns0, nsf = int(c0.solvable.sum()), int(fine.solvable.sum())
     upstroke = fused_smoother.schedule_for(config, False)
     smoother_in = (x0f, b0f, c0.inv_diag, c0.ew0, c0.ew1, c0.ew2, c0.band)
@@ -1161,9 +1184,9 @@ def main(argv=None) -> int:
               f"({bounds_window[name][1]}) [{card}]")
     print(f"[4] CG step {times['cg_step'][0]:.4f} ms (recorded for PR 4's thread-per-cell kernel in PERF.md: "
           f"0.4213 ms), residual {times['residual'][0]:.4f} ms (recorded: 0.2355 ms), over the tiles "
-          f"{cg_tiles.core}, {cg_tiles.active.numel()}/{n_tiles(cg_tiles)} active [{card}]")
+          f"{cg_tiles.core}, {lengths(cg_tiles)[0]}/{n_tiles(cg_tiles)} active [{card}]")
     cg_untiled_ms = cuda_ms(lambda: fused_cg.search_matvec_dot(z, p, beta, *fine_ops, mode="cuda"), reps)
-    print(f"[4] CG step without tiles (built in each call from diag != 0, a host sync): {cg_untiled_ms:.4f} ms [{card}]")
+    print(f"[4] CG step without tiles (built in each call from diag != 0, on the card): {cg_untiled_ms:.4f} ms [{card}]")
     print(f"[4] fine upstroke block + dot: band-restricted config {times['smoother_band_strip'][0]:.4f} ms "
           f"(recorded for the one-launch-per-pass kernel in PERF.md: 1.6521 ms), full-grid config "
           f"{times['smoother'][0]:.4f} ms (recorded: 1.9510 ms) [{card}]")
@@ -1193,14 +1216,14 @@ def main(argv=None) -> int:
         down_ms = cuda_ms(lambda blk=blk_d: fused_smoother.smooth_level(
             None, b0f, c0, config, True, x_is_zero=True, emit_residual=True, blocks=blk), reps)
         t = blk_d.tiles
-        print(f"[4] chunk depth {depth}, tile {t.core}: active tiles {t.active.numel()}/{n_tiles(t)}, "
+        print(f"[4] chunk depth {depth}, tile {t.core}: active tiles {lengths(t)[0]}/{n_tiles(t)}, "
               f"fine upstroke + dot {up_ms:.4f} ms, fine downstroke + residual {down_ms:.4f} ms [{card}]")
     # Where the fine block's time goes: one launch each with the dot (so each
     # pays the buffers, the copy-in and the final sweep): the six `b` passes
     # alone, the two GS half-sweeps alone, and `b` passes over an empty band
     # list (what is left is the launch, the buffers, the copy-in, the final
     # sweep and one grid barrier per pass).
-    no_band = blk0._replace(tiles=blk0.tiles._replace(band=blk0.tiles.band[:0]))
+    no_band = blk0._replace(tiles=fused_smoother.level_tiles(c0.solvable))
     parts = {"b x6": (("b",) * 6, blk0), "r k": (("r", "k"), blk0),
              "b x2, empty band": (("b",) * 2, no_band), "b x8, empty band": (("b",) * 8, no_band)}
     part_ms = [
@@ -1208,6 +1231,42 @@ def main(argv=None) -> int:
         for tag, (s, bl) in parts.items()
     ]
     print(f"[4] fine block by pass kind, one launch each with the dot: {', '.join(part_ms)} [{card}]")
+    # The work lists' lengths come from the device (`Tiles.counts`): the
+    # lists built on the host from those lengths (the form the kernels took
+    # before, with host counts), padded with other tiles and cells in place
+    # of the sentinel, give the same bits -- the kernels read nothing past
+    # the counts, and the device-built lists are the host-built ones.
+    host_lists = [t.cpu() for t in fused_smoother.trimmed(blk0.tiles)]
+    n_cells = c0.diag.numel()
+    want_active = torch.nonzero(fused_smoother.tile_occupancy(c0.solvable, blk0.tiles.core).reshape(-1).cpu())
+    want_band = torch.nonzero(c0.band.reshape(-1).cpu())
+    require(torch.equal(host_lists[0].long(), want_active.reshape(-1))
+            and torch.equal(host_lists[2].long(), want_band.reshape(-1)), "device-built lists differ from the host's")
+
+    def junk_padded(lst, cap):
+        pad = torch.arange(cap - lst.numel(), dtype=torch.int32) % max(lst.numel(), 1)
+        return torch.cat([lst, lst[pad.long()] if lst.numel() else pad]).to(dev)
+
+    junk = blk0.tiles._replace(
+        active=junk_padded(host_lists[0], n_tiles(blk0.tiles)), dead=junk_padded(host_lists[1], n_tiles(blk0.tiles)),
+        band=junk_padded(host_lists[2], n_cells),
+        counts=torch.tensor([h.numel() for h in host_lists], dtype=torch.int32, device=dev),
+    )
+    same = {
+        "smoother": all(torch.equal(a, b) for a, b in zip(
+            fused_smoother.smooth_level(x0f, b0f, c0, config, False, emit_dot=True, blocks=blk0),
+            fused_smoother.smooth_level(x0f, b0f, c0, config, False, emit_dot=True, blocks=blk0._replace(tiles=junk)))),
+        "cg_step": all(torch.equal(a, b) for a, b in zip(
+            fused_cg.search_matvec_dot(x0f, b0f, beta, c0.diag, c0.ew0, c0.ew1, c0.ew2, mode="cuda", tiles=blk0.tiles),
+            fused_cg.search_matvec_dot(x0f, b0f, beta, c0.diag, c0.ew0, c0.ew1, c0.ew2, mode="cuda", tiles=junk))),
+        "residual": torch.equal(
+            fused_cg.residual(x0f, b0f, c0.diag, c0.ew0, c0.ew1, c0.ew2, mode="cuda", tiles=blk0.tiles),
+            fused_cg.residual(x0f, b0f, c0.diag, c0.ew0, c0.ew1, c0.ew2, mode="cuda", tiles=junk)),
+    }
+    print(f"[4] device counts {lengths(blk0.tiles)} at L0: bit-equal to the host-built lists padded with other "
+          f"entries: {same}; lists {nbytes(blk0.tiles.active, blk0.tiles.dead, blk0.tiles.band) / 2**20:.1f} MiB "
+          f"(the band padded to {n_cells:,} cells)")
+    require(all(same.values()), "a kernel read its work list past the device count")
 
     # ---- 5. solve times, kernels vs plain ---------------------------------------------
     rhs = bench_rhs(setup, velocity)
@@ -1505,12 +1564,12 @@ def main(argv=None) -> int:
     for lv, blk in sblk.items():
         t = blk.tiles
         print(f"[8] L{lv} stacked grid: chunk depth {t.depth}, tile {t.core}, active tiles "
-              f"{t.active.numel()}/{n_tiles(t)} = {t.active.numel() / n_tiles(t):.3f}, "
-              f"{t.band.numel():,} band cells")
+              f"{lengths(t)[0]}/{n_tiles(t)} = {lengths(t)[0] / n_tiles(t):.3f}, "
+              f"{lengths(t)[2]:,} band cells")
     pre_cg = fused_sharded.prehalo_cg_coeffs(fine, mesh)
     cg_tiles_s = fused_sharded.stacked_cg_tiles(pre_cg)
-    print(f"[8] L0 stacked grid, CG step: tile {cg_tiles_s.core}, active tiles {cg_tiles_s.active.numel()}/"
-          f"{n_tiles(cg_tiles_s)} = {cg_tiles_s.active.numel() / n_tiles(cg_tiles_s):.3f}")
+    print(f"[8] L0 stacked grid, CG step: tile {cg_tiles_s.core}, active tiles {lengths(cg_tiles_s)[0]}/"
+          f"{n_tiles(cg_tiles_s)} = {lengths(cg_tiles_s)[0] / n_tiles(cg_tiles_s):.3f}")
     print(f"[8] stacked coefficients per solve: smoother "
           f"{sum(nbytes(*(t for t in pc if t is not None)) for pc in pre.values()) / 1e9:.3f} GB, "
           f"CG operator {nbytes(*pre_cg) / 1e9:.3f} GB")
@@ -1861,7 +1920,7 @@ def main(argv=None) -> int:
     want = fused_cg.search_matvec_dot_torch(xn, bn, beta_n, *ops_n) + (fused_cg.residual_torch(xn, bn, *ops_n),)
     fp64_node_err = max([fp64_node_err] + [rel_err(g, w)[1] for g, w in zip(got, want)])
     print(f"[10a] fp64 chunk kernel (every case), CG step and residual vs plain at {tuple(c_n.shape)}: max relative "
-          f"error {fp64_node_err:.3e} (limit 1e-12); active tiles {blk_n.tiles.active.numel()}/{n_tiles(blk_n.tiles)}")
+          f"error {fp64_node_err:.3e} (limit 1e-12); active tiles {lengths(blk_n.tiles)[0]}/{n_tiles(blk_n.tiles)}")
     require(fp64_node_err <= 1e-12, "fp64 kernels at the test node's window differ from plain")
     ns_n, nc_n = int(c_n.solvable.sum()), c_n.diag.numel()
     node_rows = {
@@ -1869,7 +1928,7 @@ def main(argv=None) -> int:
             lambda: fused_smoother.smooth_level(xn, bn, c_n, cfg_node, False, emit_dot=True, blocks=blk_n),
             lambda: fused_smoother.smooth_level_torch(xn, bn, c_n, cfg_node, False, emit_dot=True, blocks=blk_n),
             bound(active_bytes(ns_n, (xn, bn, c_n.inv_diag, *ops_n[1:], c_n.band), nc_n, (xn,)),
-                  block_ops(upstroke, ns_n, blk_n.tiles.band.numel(), True)),
+                  block_ops(upstroke, ns_n, lengths(blk_n.tiles)[2], True)),
         ),
         "cg_step": (
             lambda: fused_cg.search_matvec_dot(xn, bn, beta_n, *ops_n, mode="cuda", tiles=blk_n.tiles),
@@ -2787,8 +2846,6 @@ def main(argv=None) -> int:
         "chebyshev smoother": (lambda: mgpcg.solve(setup.problem, rhs, config=dataclasses.replace(
             config, interior_smoother="chebyshev", chebyshev_degree=3)), 1),
         "simulate.run, 2 frames": (lambda: simulate.run(phi0, vel0, weights, num_frames=2, config=sim_cfg), 2),
-        "run_fused, 2 frames": (lambda: simulate.run_fused(phi0, vel0, weights, num_frames=2, config=sim_cfg,
-                                                            chunk=2), 2),
     }
     seen14 = {}
     for tag, (fn, solves_n) in paths14.items():
@@ -2796,9 +2853,17 @@ def main(argv=None) -> int:
         fn()
         torch.cuda.synchronize()
         seen14[tag] = (graph.STATS.captures, solves_n)
+    # run_fused's solves run inside its frame graph (phase 15): one frame
+    # capture per frozen geometry, no capture of the CG loop alone.
+    graph.STATS.reset()
+    simulate.run_fused(phi0, vel0, weights, num_frames=2, config=sim_cfg, chunk=2)
+    torch.cuda.synchronize()
+    fused14 = (graph.STATS.captures, graph.STATS.frame_captures)
     print(f"[14d] graph captures / solves by entry point: "
-          + ", ".join(f"{tag} {c}/{s_}" for tag, (c, s_) in seen14.items()) + f" [{card}]")
+          + ", ".join(f"{tag} {c}/{s_}" for tag, (c, s_) in seen14.items())
+          + f"; run_fused, 2 frames: {fused14[0]} CG-loop captures, {fused14[1]} frame capture [{card}]")
     require(all(c == s_ for c, s_ in seen14.values()), "[14d] a single-process solve did not run as the graph")
+    require(fused14 == (0, 1), "[14d] run_fused's frames did not run as one frame graph")
 
     # [14e] run() and run_fused per frame at n^3, graph against eager in
     # turns (twice), and host syncs per frame of each.
@@ -2825,6 +2890,144 @@ def main(argv=None) -> int:
               f"(each: {', '.join(f'{t:.4f}' for t in ts)}) [{card}]")
     print(f"[14e] run() host syncs per frame: graph {syncs_f[False]:.1f}, eager {syncs_f[True]:.1f}")
     print(f"[14] phase 14 took {time.perf_counter() - t14:.1f} s [{card}]")
+
+    # ---- 15. the fused frame chunk as one captured CUDA graph per frozen geometry ---------
+    # run_fused at n^3 in the bench configuration (phase 7's), 2 chunks of
+    # 4 frames: each frame one launch of graph.FrameGraph, against the same
+    # frames run eagerly (graph.EmulatedFrame, `eager_cg_loop`) and run().
+    t15 = time.perf_counter()
+    frames15, chunk15 = 8, 4
+
+    def fused15(eager: bool, **kw):
+        with loop_mode(eager):
+            return simulate.run_fused(phi0, vel0, weights, num_frames=frames15, config=sim_cfg, chunk=chunk15, **kw)
+
+    # [15a] graph and eager: iterations, fields bit for bit, launch counts,
+    # captures, frame launches and chunk reads.
+    runs15 = {}
+    for eager in (False, True):
+        chunks15 = []
+        reset_counts()
+        graph.STATS.reset()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        out = fused15(eager, on_chunk=lambda done, st, c=chunks15: c.append(done))
+        torch.cuda.synchronize()
+        peak = (torch.cuda.max_memory_allocated() - held) / 2**30
+        runs15[eager] = (out, read_counts(), dataclasses.replace(graph.STATS), chunks15, peak)
+    (g15, g_counts, g_stats, g_chunks, g_peak), (e15, e_counts, e_stats, e_chunks, e_peak) = runs15[False], runs15[True]
+    it_g, it_e = [int(i) for i in g15[3]["iterations"]], [int(i) for i in e15[3]["iterations"]]
+    fields15 = {"phi": (g15[0], e15[0]), "pressure": (g15[2], e15[2]),
+                **{f"velocity {a}": (g15[1][a], e15[1][a]) for a in range(3)}}
+    diffs15 = {k: rel_err(a, b)[1] for k, (a, b) in fields15.items()}
+    bits15 = all(torch.equal(a, b) for a, b in fields15.values())
+    print(f"[15a] run_fused {frames15} frames in chunks of {chunk15} at {n}^3: chunks run fused graph {g_chunks}, "
+          f"eager {e_chunks}; iterations graph {it_g}, eager {it_e}; fields bit-equal {bits15}, max relative "
+          f"difference {', '.join(f'{k} {v:.3e}' for k, v in diffs15.items())}")
+    print(f"[15a] device launch counts graph {g_counts}, eager {e_counts}; frame captures {g_stats.frame_captures}, "
+          f"frame launches {g_stats.frame_launches}, chunk reads {g_stats.frame_reads}, CG-loop captures "
+          f"{g_stats.captures}; capture {g_stats.frame_capture_seconds * 1e3:.1f} ms + instantiate "
+          f"{g_stats.frame_instantiate_seconds * 1e3:.1f} ms; peak memory above the held, graph {g_peak:.3f} GiB, "
+          f"eager {e_peak:.3f} GiB; the frame pool {graph._POOL_BYTES.get((0, 'frame'), 0) / 2**30:.3f} GiB [{card}]")
+    require(g_chunks == e_chunks == [chunk15, frames15], "[15a] a chunk did not run fused")
+    require(it_g == it_e, "[15a] graph iterations differ from the eager frames'")
+    require(bits15, "[15a] graph fields differ from the eager frames' bits")
+    require(g_counts == e_counts and g_counts["smoother"] > 0 and g_counts["cg_step"] == sum(it_g),
+            "[15a] graph launch counts differ from the eager frames'")
+    require((g_stats.frame_captures, g_stats.frame_launches, g_stats.frame_reads, g_stats.captures)
+            == (1, frames15, frames15 // chunk15, 0), "[15a] not one capture, one launch per frame, one read per chunk")
+    require(all(r <= sim_cfg.tolerance for r in g15[3]["relative_residual"]), "[15a] a graph frame did not converge")
+
+    # [15b] Host syncs: every frame launch under set_sync_debug_mode("error")
+    # (a sync inside a frame raises), the whole call counted by source line.
+    launch15 = graph.FrameGraph.launch
+
+    def strict_launch(self):
+        mode = torch.cuda.get_sync_debug_mode()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            launch15(self)
+        finally:
+            torch.cuda.set_sync_debug_mode(mode)
+
+    graph.FrameGraph.launch = strict_launch
+    try:
+        _, sites15 = count_syncs(lambda: fused15(False))
+    finally:
+        graph.FrameGraph.launch = launch15
+    _, sites15e = count_syncs(lambda: fused15(True))
+    print(f"[15b] host syncs: 0 inside the {frames15} frame launches (sync debug mode 'error'); whole run_fused call "
+          f"{sum(sites15.values())} (eager frames {sum(sites15e.values())}), by source line: "
+          f"{dict(sites15.most_common(8))}")
+    require(not any(k.startswith(("solver/cg.py", "solver/graph.py")) for k in sites15),
+            "[15b] the CG loop of a captured frame read the host")
+
+    # [15c] Against run(): iterations +-1, fields within 1e-3 (phase 9's limits).
+    runs_r = simulate.run(phi0, vel0, weights, num_frames=frames15, config=sim_cfg)
+    _, rel_r = rel_err(g15[2], runs_r[-1].pressure)
+    print(f"[15c] run() iterations {[fr.iterations for fr in runs_r]}; frame {frames15} pressure max relative "
+          f"difference from run_fused {rel_r:.3e}")
+    require(all(abs(a - fr.iterations) <= 1 for a, fr in zip(it_g, runs_r)) and rel_r <= 1e-3,
+            "[15c] run_fused differs from run()")
+
+    # [15d] Seconds per frame, graph and eager in turns (g e e g), each call
+    # whole (geometry and capture included) and its chunk's launches alone
+    # (one FrameGraph on phase 7's first geometry, CUDA events around a
+    # chunk of launches: device ms per frame, and the host's time to issue
+    # them).
+    per15 = {False: [], True: []}
+    for eager in (False, True, True, False):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fused15(eager)
+        torch.cuda.synchronize()
+        per15[eager].append((time.perf_counter() - t0) / frames15)
+    geom15, prep15 = simulate.freeze_geometry(phi0, weights, None, sim_cfg)
+    state15 = (phi0, *vel0, torch.zeros_like(phi0))
+    chunk_ms = {}
+    for eager in (False, True, True, False):
+        buf15 = simulate.frame_buffers(state15, chunk15)
+        runner15 = graph.EmulatedFrame if eager else graph.FrameGraph
+        frame15 = runner15(simulate.frozen_frame(buf15, weights, None, sim_cfg, geom15, 1.0 / 120.0, -9.8),
+                           dev, prep15)
+        try:
+            for b_, t_ in zip(buf15.state, state15):
+                b_.copy_(t_)
+            torch.cuda.synchronize()
+            start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            t0 = time.perf_counter()
+            start.record()
+            for _ in range(chunk15):
+                frame15.launch()
+            stop.record()
+            t_issue = time.perf_counter() - t0
+            torch.cuda.synchronize()
+            t_wall = time.perf_counter() - t0
+            chunk_ms.setdefault(eager, []).append(
+                (start.elapsed_time(stop) / chunk15, t_issue * 1e3 / chunk15, t_wall * 1e3 / chunk15))
+        finally:
+            frame15.close()
+    for eager in (False, True):
+        tag = "eager" if eager else "graph"
+        best = min(chunk_ms[eager])
+        print(f"[15d] {tag}: {min(per15[eager]):.4f} s per frame of the whole run_fused call, best of 2 in turns "
+              f"(each: {', '.join(f'{t:.4f}' for t in per15[eager])}); a chunk's launches alone: "
+              f"{best[2]:.2f} ms wall per frame, {best[0]:.2f} ms between CUDA events, host {best[1]:.2f} ms to "
+              f"issue each frame [{card}]")
+
+    # [15e] Advection's device time apart (PERF.md section 7): the frame's
+    # advection and gravity at n^3, CUDA events over 5 calls.
+    dx15 = 1.0 / n
+
+    def advect15():
+        new_phi, new_vel = simulate._advect(phi0, vel0, 1.0 / 120.0, dx15, sim_cfg)
+        return new_phi, new_vel[1] + (-9.8) * (1.0 / 120.0)
+
+    adv_ms = cuda_ms(advect15, 5)
+    print(f"[15e] advection + gravity at {n}^3 ({sim_cfg.advection}): {adv_ms:.3f} ms on the device "
+          f"(CUDA events, 5 calls) [{card}]")
+    print(f"[15] phase 15 took {time.perf_counter() - t15:.1f} s [{card}]")
 
     src = "geometricmultigridpressuresolver_tpu_torch/csrc/"
     jax_src = "geometricmultigridpressuresolver_tpu/"
@@ -2864,10 +3067,10 @@ def main(argv=None) -> int:
                  library_ms=library[name])
         if name.startswith("smoother"):
             t = (sblk[0] if name == "smoother_sharded" else blk0h if name == "smoother_bf16" else blk0).tiles
-            k.update(depth=t.depth, tile=list(t.core), active_tile_share=t.active.numel() / n_tiles(t))
+            k.update(depth=t.depth, tile=list(t.core), active_tile_share=lengths(t)[0] / n_tiles(t))
         if name.startswith(("cg_step", "residual")):
             t = cg_tiles_s if name == "cg_step_sharded" else cg_tiles
-            k.update(tile=list(t.core), active_tile_share=t.active.numel() / n_tiles(t))
+            k.update(tile=list(t.core), active_tile_share=lengths(t)[0] / n_tiles(t))
         if name in dot_errs:
             k["dot_max_rel_err"] = dot_errs[name]
     print(json.dumps({"transfers": transfer_rows}))

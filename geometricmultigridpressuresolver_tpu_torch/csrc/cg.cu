@@ -18,9 +18,10 @@
 // slabs that hold a solvable cell, write zeros elsewhere through aliased
 // zero buffers, and form p' once per slab with a one-cell halo.  Here one
 // CUDA block takes one tile of kTX x kTY x kTZ = (8, 8, 32) cells, the
-// chunk kernel's tile (ops/fused_smoother.py::CHUNK_TILE): blocks
-// [0, n_active) the active tiles of the level's `Tiles` (those holding a
-// solvable cell), the others its dead tiles, where they store zeros with
+// chunk kernel's tile (ops/fused_smoother.py::CHUNK_TILE): the grid is the
+// level's tile count, blocks [0, n_active) take the active tiles of the
+// level's `Tiles` (those holding a solvable cell; n_active is read from
+// the device, so a launch needs no host count), the others its dead tiles, where they store zeros with
 // 16-byte stores and read nothing -- each output is a fresh tensor written
 // once on every cell.  An active block stages its stencil input (p' for the
 // CG step, formed once per cell as it loads; x for the residual) over the
@@ -63,27 +64,31 @@ template <typename T> __device__ __forceinline__ T ldg_as(const __nv_bfloat16* p
 }
 
 // The level's tiling: the active and dead tile ids (x-major over the
-// (kTX, kTY, kTZ) tiling) and the grid.
+// (kTX, kTY, kTZ) tiling, each list padded to the tile count), their
+// lengths on the device (counts[0] active, counts[1] dead) and the grid.
 struct TileList {
   const int* active;
   const int* dead;
-  int n_active;
+  const int* counts;
   int nx, ny, nz, gy, gz;
 };
 
 struct Origin {
   int x0, y0, z0;
   bool active;
+  int n_active;  // the level's active tiles (read from the device)
 };
 
-// The tile of this CUDA block: active tiles first, then the dead ones.
+// The tile of this CUDA block: active tiles first, then the dead ones (the
+// grid is the tile count, so every tile has its block whatever the split).
 __device__ __forceinline__ Origin tile_origin(const TileList& t) {
   const int b = blockIdx.x;
-  const bool active = b < t.n_active;
-  const int tile = active ? t.active[b] : t.dead[b - t.n_active];
+  const int n_active = __ldg(t.counts);
+  const bool active = b < n_active;
+  const int tile = active ? __ldg(t.active + b) : __ldg(t.dead + (b - n_active));
   const int per_x = t.gy * t.gz;
   const int tx = tile / per_x, r = tile - tx * per_x, ty = r / t.gz;
-  return {tx * kTX, ty * kTY, (r - ty * t.gz) * kTZ, active};
+  return {tx * kTX, ty * kTY, (r - ty * t.gz) * kTZ, active, n_active};
 }
 
 // Zeros on the tile's cells that lie in the grid; 16-byte stores where the
@@ -184,7 +189,7 @@ struct StepArgs {
   const E* e2;
   T* p_out;
   T* ap_out;
-  T* partials;  // n_active entries
+  T* partials;  // one entry per tile (n_active used)
   T* dot;
   unsigned int* ticket;  // zero between launches
   TileList t;
@@ -199,7 +204,7 @@ __global__ void __launch_bounds__(kBlock) cg_step_kernel(const StepArgs<T, E> a)
   count_launch(a.launches);
   const Origin o = tile_origin(a.t);
   if (!o.active) {
-    if (a.t.n_active == 0 && blockIdx.x == 0 && threadIdx.x == 0) *a.dot = T(0);
+    if (o.n_active == 0 && blockIdx.x == 0 && threadIdx.x == 0) *a.dot = T(0);
     zero_tile(a.p_out, o, a.t);
     zero_tile(a.ap_out, o, a.t);
     return;
@@ -224,13 +229,13 @@ __global__ void __launch_bounds__(kBlock) cg_step_kernel(const StepArgs<T, E> a)
   if (threadIdx.x == 0) {
     a.partials[blockIdx.x] = total;
     __threadfence();
-    last = atomicAdd(a.ticket, 1u) == unsigned(a.t.n_active - 1);
+    last = atomicAdd(a.ticket, 1u) == unsigned(o.n_active - 1);
   }
   __syncthreads();
   if (!last) return;
   // The last block: every partial is written; sum them in index order.
   T v = T(0);
-  for (int b = threadIdx.x; b < a.t.n_active; b += kBlock) v += __ldcg(a.partials + b);
+  for (int b = threadIdx.x; b < o.n_active; b += kBlock) v += __ldcg(a.partials + b);
   v = block_sum(v);
   if (threadIdx.x == 0) {
     *a.dot = v;
@@ -277,16 +282,15 @@ sum_partials_kernel(const T* __restrict__ partials, long long count,
 }
 
 // The TileList of an (nx, ny, nz) grid, or false when the tiles are not
-// the kernels' tile or do not cover the grid, or the tiled grid is too
-// large for 32-bit cell indices.
-inline bool tile_list(const void* active, int n_active, const void* dead, int n_dead, int nx, int ny,
-                      int nz, int lx, int ty, int tz, TileList* t) {
-  if (lx != kTX || ty != kTY || tz != kTZ || nx < 0 || ny < 0 || nz < 0 || n_active < 0 || n_dead < 0)
-    return false;
+// the kernels' tile, the lists' capacity n_tiles is not the grid's tile
+// count, or the tiled grid is too large for 32-bit cell indices.
+inline bool tile_list(const void* active, const void* dead, const void* counts, int n_tiles, int nx,
+                      int ny, int nz, int lx, int ty, int tz, TileList* t) {
+  if (lx != kTX || ty != kTY || tz != kTZ || nx < 0 || ny < 0 || nz < 0 || counts == nullptr) return false;
   const long long gx = (nx + kTX - 1) / kTX, gy = (ny + kTY - 1) / kTY, gz = (nz + kTZ - 1) / kTZ;
-  if (gx * gy * gz != (long long)n_active + n_dead || (gx * kTX + 1) * ny * nz >= (1LL << 31)) return false;
-  *t = TileList{static_cast<const int*>(active), static_cast<const int*>(dead), n_active, nx, ny, nz,
-                int(gy), int(gz)};
+  if (gx * gy * gz != n_tiles || (gx * kTX + 1) * ny * nz >= (1LL << 31)) return false;
+  *t = TileList{static_cast<const int*>(active), static_cast<const int*>(dead),
+                static_cast<const int*>(counts), nx, ny, nz, int(gy), int(gz)};
   return true;
 }
 
@@ -314,10 +318,13 @@ cudaError_t launch_residual(ResidualArgs<T, S, E> a, int n_tiles, cudaStream_t s
   if (fdt == kF64 && edt == kBF16) return CALL(double, __nv_bfloat16);       \
   return (int)cudaErrorInvalidValue;
 
-// active / dead: the n_active active and n_dead dead tile ids of the
-// (lx, ty, tz) tiling, which must be the kernels' (8, 8, 32); partials:
-// n_active entries of the field type; dot: the 0-d output; ticket: one
-// 32-bit word, zero before the launch (the launch leaves it zero).
+// active / dead: the active and dead tile ids of the (lx, ty, tz) tiling,
+// which must be the kernels' (8, 8, 32), each list padded to the n_tiles
+// tiles of the grid; counts: their lengths on the device (n_active,
+// n_dead, ...), read by the kernel, which launches one block per tile;
+// partials: n_tiles entries of the field type; dot: the 0-d output;
+// ticket: one 32-bit word, zero before the launch (the launch leaves it
+// zero).
 // period, lo_x, hi_x, lo_y, hi_y: the dot's core window.  launches: the
 // launch counter (one unsigned 64-bit word, raised by one per launch), or
 // null.
@@ -325,14 +332,14 @@ extern "C" int gmg_cg_step(int fdt, int edt, const void* z, const void* p,
                            const void* beta, const void* diag, const void* e0,
                            const void* e1, const void* e2, void* p_out,
                            void* ap_out, void* partials, void* dot, void* ticket,
-                           const void* active, int n_active, const void* dead,
-                           int n_dead, int nx, int ny, int nz, int lx, int ty,
+                           const void* active, const void* dead, const void* counts,
+                           int n_tiles, int nx, int ny, int nz, int lx, int ty,
                            int tz, int period, int lo_x, int hi_x, int lo_y,
                            int hi_y, void* launches, void* stream) {
   using namespace gmg;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   TileList t;
-  if (period <= 0 || !tile_list(active, n_active, dead, n_dead, nx, ny, nz, lx, ty, tz, &t))
+  if (period <= 0 || !tile_list(active, dead, counts, n_tiles, nx, ny, nz, lx, ty, tz, &t))
     return (int)cudaErrorInvalidValue;
   const CoreWindow win{period, lo_x, hi_x, lo_y, hi_y};
 #define GMG_STEP(T, E)                                                                       \
@@ -344,7 +351,7 @@ extern "C" int gmg_cg_step(int fdt, int edt, const void* z, const void* p,
                      static_cast<T*>(ap_out), static_cast<T*>(partials), static_cast<T*>(dot), \
                      static_cast<unsigned int*>(ticket), t, win,                             \
                      static_cast<unsigned long long*>(launches)},                            \
-      n_active + n_dead, s)
+      n_tiles, s)
   GMG_DISPATCH(GMG_STEP)
 #undef GMG_STEP
 }
@@ -354,13 +361,13 @@ extern "C" int gmg_cg_step(int fdt, int edt, const void* z, const void* p,
 extern "C" int gmg_residual(int fdt, int sdt, int edt, const void* x,
                             const void* b, const void* diag, const void* e0,
                             const void* e1, const void* e2, void* r,
-                            const void* active, int n_active, const void* dead,
-                            int n_dead, int nx, int ny, int nz, int lx, int ty,
+                            const void* active, const void* dead, const void* counts,
+                            int n_tiles, int nx, int ny, int nz, int lx, int ty,
                             int tz, void* launches, void* stream) {
   using namespace gmg;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   TileList t;
-  if (!tile_list(active, n_active, dead, n_dead, nx, ny, nz, lx, ty, tz, &t))
+  if (!tile_list(active, dead, counts, n_tiles, nx, ny, nz, lx, ty, tz, &t))
     return (int)cudaErrorInvalidValue;
 #define GMG_RES_ST(T, S, E)                                                                \
   launch_residual<T, S, E>(                                                                \
@@ -369,7 +376,7 @@ extern "C" int gmg_residual(int fdt, int sdt, int edt, const void* x,
                             static_cast<const E*>(e1), static_cast<const E*>(e2),          \
                             static_cast<S*>(r), t,                                         \
                             static_cast<unsigned long long*>(launches)},                   \
-      n_active + n_dead, s)
+      n_tiles, s)
 #define GMG_RES(T, E) GMG_RES_ST(T, T, E)
   if (sdt == fdt) {
     GMG_DISPATCH(GMG_RES)

@@ -42,7 +42,13 @@
 // other buffer everywhere and copies it back.  The work buffers are zero on
 // dead tiles (the wrapper allocates them zeroed), which is the pass
 // sequence's output there (fields are zero outside the solvable set, edge
-// weights zero across its border).  Buffer reads after a barrier bypass L1
+// weights zero across its border).  The lists' lengths come from the
+// device (`counts`, written by the kernels that built the lists; the JAX
+// package's `_compact_blocks` keeps its active-slab count on the device
+// too), read once per launch; the grid does not depend on them and tile t
+// goes to block t % gridDim.x whatever they are, so a launch gives the bits
+// it gave with host counts, and a captured frame replays with lengths the
+// host never saw.  Buffer reads after a barrier bypass L1
 // (ld.global.cg): another SM may have written the line.
 //
 // Variants.  A null x_in is a zero start (x == 0, the downstroke): nothing
@@ -90,10 +96,9 @@ struct ChunkArgs {
   const E* e0;
   const E* e1;
   const E* e2;
-  const int* band_cells;  // flat indices of the band cells, ascending
-  int n_band;
-  const int* tiles;  // active tiles, ascending (x-major over the (lx, ty, tz) tiling)
-  int n_active;
+  const int* band_cells;  // flat indices of the band cells, ascending (padded)
+  const int* tiles;  // active tiles, ascending (x-major over the (lx, ty, tz) tiling; padded)
+  const int* counts;  // device: n_active, n_dead, n_band
   T* partials;  // one per CUDA block, or null
   unsigned int* barrier;  // two zeroed words: arrival count, generation
   int nx, ny, nz;
@@ -147,16 +152,16 @@ __device__ __forceinline__ T neighbor_sum_cg(const T* x, const E* e0, const E* e
   return v;
 }
 
-// Calls f(q, i, j, k) for every cell of the active tiles that lies in the
-// grid (with `color` >= 0 only the cells of that colour), each block over
-// its own tiles: tile t goes to block t % gridDim.x.
+// Calls f(q, i, j, k) for every cell of the n_active active tiles that lies
+// in the grid (with `color` >= 0 only the cells of that colour), each block
+// over its own tiles: tile t goes to block t % gridDim.x.
 template <typename A, typename F>
-__device__ __forceinline__ void for_active_cells(const A& a, int color, F f) {
+__device__ __forceinline__ void for_active_cells(const A& a, int n_active, int color, F f) {
   const int per_tile = 1 << (a.lx_shift + a.ty_shift + a.tz_shift);
   const int cells = color >= 0 ? per_tile >> 1 : per_tile;
   const int zs = color >= 0 ? a.tz_shift - 1 : a.tz_shift;
   const long long sx = (long long)a.ny * a.nz;
-  for (int t = blockIdx.x; t < a.n_active; t += gridDim.x) {
+  for (int t = blockIdx.x; t < n_active; t += gridDim.x) {
     const int tile = a.tiles[t];
     const int x0 = tile / (a.gy * a.gz) << a.lx_shift;
     const int y0 = tile / a.gz % a.gy << a.ty_shift;
@@ -171,11 +176,12 @@ __device__ __forceinline__ void for_active_cells(const A& a, int color, F f) {
   }
 }
 
-// Calls f(q, i, j, k) for every band cell, spread over the whole grid.
+// Calls f(q, i, j, k) for each of the n_band band cells, spread over the
+// whole grid.
 template <typename A, typename F>
-__device__ __forceinline__ void for_band_cells(const A& a, F f) {
+__device__ __forceinline__ void for_band_cells(const A& a, int n_band, F f) {
   const int plane = a.ny * a.nz;
-  for (int e = blockIdx.x * blockDim.x + threadIdx.x; e < a.n_band; e += gridDim.x * blockDim.x) {
+  for (int e = blockIdx.x * blockDim.x + threadIdx.x; e < n_band; e += gridDim.x * blockDim.x) {
     const int q = a.band_cells[e];
     const int i = q / plane, r = q - i * plane, j = r / a.nz;
     f((long long)q, i, j, r - j * a.nz);
@@ -186,6 +192,8 @@ template <typename T, typename S, typename XI, typename E>
 __global__ void __launch_bounds__(kCoopThreads)
 smooth_chunk_kernel(const ChunkArgs<T, S, XI, E> a) {
   count_launch(a.launches);
+  // The lists' lengths, written on the device by whatever built them.
+  const int n_active = __ldg(a.counts), n_band = __ldg(a.counts + 2);
   const bool zero = a.x_in == nullptr;
   // The buffer that holds the current x, and the other one; `agree`: they
   // are equal on the band cells too.
@@ -193,7 +201,7 @@ smooth_chunk_kernel(const ChunkArgs<T, S, XI, E> a) {
   T* oth = a.buf_b;
   bool agree = true;
   if (!zero) {
-    for_active_cells(a, -1, [&](long long q, int, int, int) {
+    for_active_cells(a, n_active, -1, [&](long long q, int, int, int) {
       const T v = load_as<T>(a.x_in, q);
       a.buf_a[q] = v;
       a.buf_b[q] = v;
@@ -205,7 +213,7 @@ smooth_chunk_kernel(const ChunkArgs<T, S, XI, E> a) {
     const bool from_zero = zero && s == 0;  // x == 0: no x, no neighbour
     if (code == 0) {
       // Band cells: read cur, write oth, which then is current.
-      for_band_cells(a, [&](long long q, int i, int j, int k) {
+      for_band_cells(a, n_band, [&](long long q, int i, int j, int k) {
         const T xc = from_zero ? T(0) : load_cg(cur + q);
         const T v = from_zero ? T(0) : neighbor_sum_cg(cur, a.e0, a.e1, a.e2, q, i, j, k, a.nx, a.ny, a.nz);
         const T id = load_as<T>(a.inv_diag, q);
@@ -219,23 +227,23 @@ smooth_chunk_kernel(const ChunkArgs<T, S, XI, E> a) {
       agree = false;
     } else if (code == 3) {
       // Every cell: read cur, write oth; then copy oth back into cur.
-      for_active_cells(a, -1, [&](long long q, int i, int j, int k) {
+      for_active_cells(a, n_active, -1, [&](long long q, int i, int j, int k) {
         const T xc = from_zero ? T(0) : load_cg(cur + q);
         const T v = from_zero ? T(0) : neighbor_sum_cg(cur, a.e0, a.e1, a.e2, q, i, j, k, a.nx, a.ny, a.nz);
         const T id = load_as<T>(a.inv_diag, q);
         oth[q] = a.one_minus_w * xc + (a.w * id) * (load_as<T>(a.b, q) + v);
       });
       grid_barrier(a.barrier);
-      for_active_cells(a, -1, [&](long long q, int, int, int) { cur[q] = load_cg(oth + q); });
+      for_active_cells(a, n_active, -1, [&](long long q, int, int, int) { cur[q] = load_cg(oth + q); });
       agree = true;
     } else {
       if (!agree) {
-        for_band_cells(a, [&](long long q, int, int, int) { oth[q] = load_cg(cur + q); });
+        for_band_cells(a, n_band, [&](long long q, int, int, int) { oth[q] = load_cg(cur + q); });
         grid_barrier(a.barrier);
         agree = true;
       }
       // The cells of one colour, in place in both buffers.
-      for_active_cells(a, code - 1, [&](long long q, int i, int j, int k) {
+      for_active_cells(a, n_active, code - 1, [&](long long q, int i, int j, int k) {
         const T v = from_zero ? T(0) : neighbor_sum_cg(cur, a.e0, a.e1, a.e2, q, i, j, k, a.nx, a.ny, a.nz);
         const T xn = load_as<T>(a.inv_diag, q) * (load_as<T>(a.b, q) + v);
         cur[q] = xn;
@@ -246,12 +254,12 @@ smooth_chunk_kernel(const ChunkArgs<T, S, XI, E> a) {
   }
   if (cur != a.buf_a) {
     // A differs from the current buffer on band cells at most.
-    for_band_cells(a, [&](long long q, int, int, int) { a.buf_a[q] = load_cg(cur + q); });
+    for_band_cells(a, n_band, [&](long long q, int, int, int) { a.buf_a[q] = load_cg(cur + q); });
     grid_barrier(a.barrier);
   }
   T contrib = T(0);
   if (a.x_store || a.partials || a.r_out) {
-    for_active_cells(a, -1, [&](long long q, int i, int j, int k) {
+    for_active_cells(a, n_active, -1, [&](long long q, int i, int j, int k) {
       const T xv = load_cg(a.buf_a + q);
       if (a.x_store) store_as(a.x_store, q, xv);
       if (a.partials && in_core(a.win, Cell{i, j, k})) contrib += xv * load_as<T>(a.b, q);
@@ -290,8 +298,8 @@ cudaError_t launch_chunk(int n_pass, int kinds, double damping, const void* x_in
                          void* buf_a, void* buf_b, void* x_store, void* r_out,
                          const void* b, const void* inv_diag, const void* diag,
                          const void* e0, const void* e1, const void* e2,
-                         const void* band_cells, int n_band, const void* tiles,
-                         int n_active, int nx, int ny, int nz, int lx, int ty,
+                         const void* band_cells, const void* tiles,
+                         const void* counts, int nx, int ny, int nz, int lx, int ty,
                          int tz, void* partials, int grid, void* barrier,
                          CoreWindow win, void* launches, cudaStream_t stream) {
   ChunkArgs<T, S, XI, E> a;
@@ -311,9 +319,8 @@ cudaError_t launch_chunk(int n_pass, int kinds, double damping, const void* x_in
   a.e1 = static_cast<const E*>(e1);
   a.e2 = static_cast<const E*>(e2);
   a.band_cells = static_cast<const int*>(band_cells);
-  a.n_band = n_band;
   a.tiles = static_cast<const int*>(tiles);
-  a.n_active = n_active;
+  a.counts = static_cast<const int*>(counts);
   a.partials = static_cast<T*>(partials);
   a.barrier = static_cast<unsigned int*>(barrier);
   a.nx = nx, a.ny = ny, a.nz = nz;
@@ -367,9 +374,10 @@ extern "C" int gmg_smooth_chunk_grid(int fdt, int sdt, int xdt, int edt) {
 // bfloat16 (the stored x) or float (an intermediate buffer).  kinds: the
 // n_pass pass codes, 2 bits each, first pass lowest.  A null x_in is a zero
 // start, a null r_out no residual.  buf_a, buf_b: zeroed work buffers of
-// type T; buf_a holds the result.  band_cells: the n_band band cells.
-// tiles: the n_active active tiles of the (lx, ty, tz) tiling (powers of
-// two).  grid: the CUDA blocks of the launch, gmg_smooth_chunk_grid(...)
+// type T; buf_a holds the result.  band_cells: the band cells; tiles: the
+// active tiles of the (lx, ty, tz) tiling (powers of two); counts: three
+// int32 on the device, (n_active, n_dead, n_band), the lengths of the two
+// lists, read by the kernel (the lists may be padded past them).  grid: the CUDA blocks of the launch, gmg_smooth_chunk_grid(...)
 // for these types (a larger grid cannot be co-resident and the launch
 // fails); partials: grid entries, or null.  barrier: two zeroed 32-bit
 // words.  period, lo_x, hi_x, lo_y, hi_y: the dot's core window (the full
@@ -381,21 +389,21 @@ extern "C" int gmg_smooth_chunk(int fdt, int sdt, int xdt, int edt, int n_pass,
                                 void* r_out, const void* b,
                                 const void* inv_diag, const void* diag,
                                 const void* e0, const void* e1, const void* e2,
-                                const void* band_cells, int n_band,
-                                const void* tiles, int n_active, int nx,
+                                const void* band_cells, const void* tiles,
+                                const void* counts, int nx,
                                 int ny, int nz, int lx, int ty, int tz,
                                 void* partials, int grid, void* barrier,
                                 int period, int lo_x, int hi_x, int lo_y,
                                 int hi_y, void* launches, void* stream) {
   using namespace gmg;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (period <= 0 || n_pass < 1 || n_pass > 15 || n_band < 0 || n_active < 0)
+  if (period <= 0 || n_pass < 1 || n_pass > 15 || counts == nullptr)
     return (int)cudaErrorInvalidValue;
   const CoreWindow win{period, lo_x, hi_x, lo_y, hi_y};
 #define GMG_CHUNK(T, S, XI, E)                                                          \
   launch_chunk<T, S, XI, E>(n_pass, kinds, damping, x_in, buf_a, buf_b, x_store, r_out, \
-                            b, inv_diag, diag, e0, e1, e2, band_cells, n_band, tiles,   \
-                            n_active, nx, ny, nz, lx, ty, tz, partials, grid,           \
+                            b, inv_diag, diag, e0, e1, e2, band_cells, tiles, counts,   \
+                            nx, ny, nz, lx, ty, tz, partials, grid,                     \
                             barrier, win, launches, s)
   GMG_CHUNK_TYPES(GMG_CHUNK)
 #undef GMG_CHUNK

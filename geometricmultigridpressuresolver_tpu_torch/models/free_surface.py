@@ -485,14 +485,15 @@ def divergence_stats(liquid_mask, velocity, weights, solid_velocity=None):
     return torch.max(torch.abs(div)), total, total / count
 
 
-def solve_and_check(problem, rhs, x0, config: SolverConfig, mesh=None):
+def solve_and_check(problem, rhs, x0, config: SolverConfig, mesh=None, device_loop=None):
     """Step 7 and the recomputed residual norms: (CG result, ||b - A x|| /
     ||b||, max |b - A x|).  The solve's operators also recompute its
     residual, so a sharded fine level's coefficients are exchanged once
-    per projection."""
+    per projection.  `device_loop`: the CG loop with no host read
+    (`mgpcg.run_stages`)."""
     rhs, x0 = mgpcg.solve_inputs(problem, rhs, x0, config, mesh)
     stages = mgpcg.solve_stages(problem, config, mesh)
-    cg_result = mgpcg.run_stages(stages, problem, rhs, x0, config)
+    cg_result = mgpcg.run_stages(stages, problem, rhs, x0, config, device_loop=device_loop)
     rel_l2, linf = cg_mod.recomputed_residual_norms(
         stages.residual, cg_result.x, rhs, problem.fine.solvable, stages.ranks,
     )
@@ -517,11 +518,14 @@ def project(
     old_pressure=None,
     config: SolverConfig | None = None,
     mesh=None,
+    device_loop=None,
 ) -> ProjectionResult:
     """Steps 5-9: RHS, warm start, MGPCG solve, writeback, audit, on the
     device that holds `setup` (inputs are moved there).  `mesh` (a one-card
     `parallel.mesh.BlockMesh`) runs the solve's sharded levels block by
-    block (`mgpcg.solve(..., mesh=)`).
+    block (`mgpcg.solve(..., mesh=)`).  With `device_loop` (the CG loop of
+    a captured frame, `solver.graph.FrameGraph`) nothing here reads the
+    host: the result's CG scalars are device tensors.
 
     With a `DistMesh` every rank calls this together with its share of the
     setup (`build_setup(mesh=)`) and runs steps 5-9 on its blocks
@@ -533,6 +537,8 @@ def project(
     if config is None:
         config = SolverConfig()
     if isinstance(mesh, DistMesh):
+        if device_loop is not None:
+            raise ValueError("the device-only CG loop runs in one process")
         return sharding.partitioned_project(setup, velocity, solid_velocity, old_pressure, config, mesh)
     validate_fields(setup.material, setup.weights, velocity=velocity)
     sd = config.solve_dtype
@@ -554,7 +560,7 @@ def project(
         warm = torch.where(liquid_mask, old, torch.zeros_like(old))
         x0 = embed_window(warm, setup.window_start, setup.base_pads, setup.expanded_shape)
 
-    cg_result, rel_l2, linf = solve_and_check(setup.problem, rhs, x0, config, mesh)
+    cg_result, rel_l2, linf = solve_and_check(setup.problem, rhs, x0, config, mesh, device_loop)
     pressure = extract_window(cg_result.x, setup.window_start, setup.base_pads, rhs_base.shape)
     pressure = torch.where(liquid_mask, pressure, torch.zeros_like(pressure))
     new_velocity = apply_pressure_gradient(velocity, pressure, valid_faces, grad_scale)

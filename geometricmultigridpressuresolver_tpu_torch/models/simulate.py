@@ -14,8 +14,10 @@ package computes it outside Pallas.
     resume (`start_frame`, `old_pressure`);
   * run_fused: chunks of frames on frozen geometry (window, level count,
     coarse bucket), the hierarchy and the coarse direct solve rebuilt on
-    the device each frame with no host decision, the geometry checked once
-    per chunk and a failing chunk re-run through `run`.
+    the device each frame with no host decision and no host read -- on
+    the card one captured CUDA graph per frame, launched back to back --
+    the geometry checked once per chunk and a failing chunk re-run
+    through `run`.
 
     gmg-torch-simulate --n 128 --frames 24 --fp32 \\
         --checkpoint-dir out/ckpt --checkpoint-every 8 [--resume out/ckpt]
@@ -35,8 +37,9 @@ from geometricmultigridpressuresolver_tpu_torch import device as device_mod
 from geometricmultigridpressuresolver_tpu_torch import io as gmg_io
 from geometricmultigridpressuresolver_tpu_torch.config import SolverConfig
 from geometricmultigridpressuresolver_tpu_torch.models import free_surface
+from geometricmultigridpressuresolver_tpu_torch.ops import transfer
+from geometricmultigridpressuresolver_tpu_torch.solver import graph, mgpcg
 from geometricmultigridpressuresolver_tpu_torch.solver import mg as mg_mod
-from geometricmultigridpressuresolver_tpu_torch.solver import mgpcg
 
 
 def _sl(axis: int, sl: slice) -> tuple:
@@ -350,18 +353,21 @@ class FrozenGeometry(NamedTuple):
 
 
 def _frame_frozen(phi, velocity, pressure, cut_cell_weights, solid_phi, config: SolverConfig,
-                  geom: FrozenGeometry, dt: float, gravity: float):
+                  geom: FrozenGeometry, dt: float, gravity: float, device_loop):
     """One whole frame with the geometry frozen, the counterpart of the JAX
     package's `_frame_traced`: advect, gravity, labels and weights, the
     frozen window, `mg._build_levels`, `mg.coarse_system_device`,
-    `mgpcg._finish_problem`, the warm-started projection.
+    `mgpcg._finish_problem`, the warm-started projection with its CG loop
+    handed to `device_loop` (`solver.graph.FrameGraph.loop`, or
+    `EmulatedFrame.loop`).
 
-    No host decision: the window, the depth and the coarse bucket come from
-    `geom`.  Returns (new_phi, new_velocity, new_pressure, result, safety)
-    with `safety` = (fits, caps_ok, ndof_c) as device tensors, which
-    `run_fused` reads once per chunk: the active region still inside the
-    window, no level lost all its DOFs (where `build_setup` would cap the
-    hierarchy), and the coarse DOF count (against the bucket).
+    No host decision and no host read: the window, the depth and the
+    coarse bucket come from `geom`.  Returns (new_phi, new_velocity,
+    new_pressure, result, safety) with the CG scalars of `result` and
+    `safety` = (fits, caps_ok, ndof_c) as device tensors, which `run_fused`
+    reads once per chunk: the active region still inside the window, no
+    level lost all its DOFs (where `build_setup` would cap the hierarchy),
+    and the coarse DOF count (against the bucket).
     """
     sd = config.solve_dtype
     dx = 1.0 / max(phi.shape)
@@ -397,7 +403,9 @@ def _frame_frozen(phi, velocity, pressure, cut_cell_weights, solid_phi, config: 
         padding=geom.padding,
         mg_levels=geom.target_levels,
     )
-    result = free_surface.project(setup, tuple(new_vel), old_pressure=pressure, config=config)
+    result = free_surface.project(
+        setup, tuple(new_vel), old_pressure=pressure, config=config, device_loop=device_loop
+    )
 
     true = torch.ones((), dtype=torch.bool, device=phi.device)
     fits = true
@@ -411,6 +419,87 @@ def _frame_frozen(phi, velocity, pressure, cut_cell_weights, solid_phi, config: 
             fits = fits & ~proj[max(hi0, 0):].any()
     caps_ok = torch.stack(flags).all() if flags else true
     return new_phi, result.velocity, result.pressure, result, (fits, caps_ok, ndof_c)
+
+
+# Per frame of a chunk, the stats row `run_fused` reads once per chunk.
+STATS_ROW = ("iterations", "relative_residual", "max_divergence", "fits", "caps_ok", "ndof_c")
+
+
+def frame_runner(device):
+    """How `run_fused` runs a frame on `device`: one captured CUDA graph
+    per frozen geometry on the card (`graph.FrameGraph`), its eager
+    counterpart on the CPU (`graph.EmulatedFrame`)."""
+    return graph.FrameGraph if torch.device(device).type == "cuda" else graph.EmulatedFrame
+
+
+class FrameBuffers(NamedTuple):
+    """The fixed tensors a captured frame reads and writes: the state
+    (phi, u, v, w, pressure), overwritten in place with the next frame's,
+    and the chunk's (chunk, 6) float64 stats rows (`STATS_ROW`), written at
+    the device frame index `index`."""
+
+    state: tuple
+    rows: torch.Tensor
+    index: torch.Tensor
+
+
+def frame_buffers(state, chunk: int) -> FrameBuffers:
+    """`FrameBuffers` shaped like `state` (phi, u, v, w, pressure) for
+    chunks of `chunk` frames (their contents: whatever the caller loads)."""
+    dev = state[0].device
+    return FrameBuffers(
+        tuple(torch.empty_like(t) for t in state),
+        torch.zeros((chunk, len(STATS_ROW)), dtype=torch.float64, device=dev),
+        torch.zeros((), dtype=torch.int64, device=dev),
+    )
+
+
+def frozen_frame(buf: FrameBuffers, weights, solid_phi, config: SolverConfig, geom: FrozenGeometry, dt: float,
+           gravity: float):
+    """The frame `run_fused` captures: `_frame_frozen` on `buf`'s state,
+    the next state written back into it and the stats row into
+    `buf.rows`, with no host read."""
+
+    def frame(device_loop) -> None:
+        phi, u, v, w, pressure = buf.state
+        new_phi, new_vel, new_pressure, result, safety = _frame_frozen(
+            phi, (u, v, w), pressure, weights, solid_phi, config, geom, dt, gravity, device_loop
+        )
+        row = torch.stack([
+            t.to(torch.float64) for t in
+            (result.cg.iterations, result.cg.relative_residual, result.max_divergence, *safety)
+        ])
+        buf.rows.index_copy_(0, buf.index.reshape(1), row.reshape(1, -1))
+        buf.index.add_(1)
+        for old, new in zip(buf.state, (new_phi, *new_vel, new_pressure)):
+            old.copy_(new)  # every read of the old state is behind this frame
+
+    return frame
+
+
+def freeze_geometry(phi, weights, solid_phi, config: SolverConfig):
+    """(geometry, prepare): `build_setup`'s host decisions on `phi`, frozen
+    for a chunk (the coarse bucket with one extra bucket of headroom), and
+    what a frame capture must find made for that geometry (the matrix-form
+    transfers' matrices; `graph.FrameGraph`'s `prepare`)."""
+    setup = free_surface.build_setup(phi, weights, solid_phi=solid_phi, config=config)
+    hier = setup.problem.hier
+    nd_pad = max(hier.coarse_minv.shape[0], hier.coarse_chol.shape[0])
+    # One extra bucket of headroom for the liquid's motion over the chunk
+    # (an overflow is detected whatever the headroom).
+    geom = FrozenGeometry(
+        setup.base_pads, setup.expanded_shape, setup.window_start, hier.num_levels,
+        max(256, nd_pad + 256), setup.padding,
+    )
+    shapes = mg_mod.level_shapes(hier)
+    dtypes = {hier.levels[0].diag.dtype, mg_mod.field_dtype(hier, config)}
+    dev = phi.device
+
+    def prepare():
+        if mg_mod.use_mm_transfers(config, dev):
+            transfer.prepare(shapes, dev, dtypes)
+
+    return geom, prepare
 
 
 def run_fused(
@@ -432,15 +521,21 @@ def run_fused(
 
     Frame 0's geometry (window, level count, coarse bucket with one extra
     bucket of headroom) comes from `build_setup` on the input state and is
-    frozen for a chunk; every frame of the chunk (`_frame_frozen`) rebuilds
-    its labels, hierarchy and coarse inverse on the device.  After a chunk
-    the host reads its safety stats once.  A chunk that broke the frozen
-    geometry (the liquid left the window, a level lost its DOFs, or the
-    coarse system outgrew the bucket) is discarded and re-run through
-    `run()`, and the geometry is frozen again from the new state: that is
-    the JAX package's own rule, so the answer never rests on the frozen
-    guess.  A tail shorter than `chunk` goes through `run()`.
-    `on_chunk(done, stats)` is called after each chunk that ran fused.
+    frozen; every frame (`_frame_frozen`) rebuilds its labels, hierarchy
+    and coarse inverse on the device.  On the card a frame is one CUDA
+    graph (`frame_runner`: `graph.FrameGraph`, the JAX package's scanned
+    chunk program), captured once per frozen geometry and launched once
+    per frame with no host read between the frames of a chunk; each frame
+    writes its stats row (`STATS_ROW`) on the device, and the host reads
+    the chunk's rows once.  A chunk that broke the frozen geometry (the
+    liquid left the window, a level lost its DOFs, or the coarse system
+    outgrew the bucket) is discarded and re-run through `run()`, and the
+    geometry is frozen again (and the frame captured again) from the new
+    state: that is the JAX package's own rule, so the answer never rests
+    on the frozen guess.  A tail shorter than `chunk` goes through
+    `run()`.  `on_chunk(done, stats)` is called after each chunk that ran
+    fused.  The frame graph and its memory pool are released on a
+    refreeze and when this returns.
 
     With `old_pressure=None` the carried pressure starts as zeros (a warm
     start from zero, as in the JAX package).  Returns (phi, velocity,
@@ -462,17 +557,7 @@ def run_fused(
         else torch.as_tensor(old_pressure, dtype=sd, device=dev)
     )
     stats_frames: list[tuple] = []
-
-    def geometry(cur_phi) -> FrozenGeometry:
-        setup = free_surface.build_setup(cur_phi, weights, solid_phi=solid_phi, config=config)
-        hier = setup.problem.hier
-        nd_pad = max(hier.coarse_minv.shape[0], hier.coarse_chol.shape[0])
-        # One extra bucket of headroom for the liquid's motion over the
-        # chunk (an overflow is detected whatever the headroom).
-        return FrozenGeometry(
-            setup.base_pads, setup.expanded_shape, setup.window_start, hier.num_levels,
-            max(256, nd_pad + 256), setup.padding,
-        )
+    buf = None  # the frame's fixed buffers, made with the first frame
 
     def per_frame(k: int):
         frames = run(
@@ -482,39 +567,49 @@ def run_fused(
         stats_frames.extend((fr.iterations, fr.relative_residual, fr.max_divergence) for fr in frames)
         return frames[-1].liquid_phi, frames[-1].velocity, frames[-1].pressure
 
-    geom = geometry(phi)
+    geom, prepare = freeze_geometry(phi, weights, solid_phi, config)
+    frame = None
     done = 0
-    while done < num_frames:
-        k = min(chunk, num_frames - done)
-        if k < chunk:
-            phi, vel, pressure = per_frame(k)
+    try:
+        while done < num_frames:
+            k = min(chunk, num_frames - done)
+            if k < chunk:
+                phi, vel, pressure = per_frame(k)
+                done += k
+                continue
+            if frame is None:
+                if buf is None:
+                    buf = frame_buffers((phi, *vel, pressure), chunk)
+                frame = frame_runner(dev)(
+                    frozen_frame(buf, weights, solid_phi, config, geom, dt, gravity), dev, prepare
+                )
+            for b, t in zip(buf.state, (phi, *vel, pressure)):
+                b.copy_(t)
+            buf.index.zero_()
+            for _ in range(k):
+                frame.launch()
+            rows = buf.rows.cpu().numpy()  # the chunk's one host read
+            graph.STATS.frame_reads += 1
+            iters, rel, max_div, fits, caps_ok, ndof_c = rows.T
+            if not (fits.all() and caps_ok.all() and ndof_c.max() <= geom.nd_pad):
+                # The liquid broke the frozen geometry: discard the chunk (the
+                # state before it is untouched), re-run it frame by frame, and
+                # freeze the geometry again from the new state.
+                phi, vel, pressure = per_frame(k)
+                frame.close()
+                frame = None
+                geom, prepare = freeze_geometry(phi, weights, solid_phi, config)
+                done += k
+                continue
+            phi, *vel, pressure = (b.clone() for b in buf.state)
+            vel = tuple(vel)
+            stats_frames.extend((int(i), float(r), float(m)) for i, r, m in zip(iters, rel, max_div))
             done += k
-            continue
-        # Per frame: the CG's host numbers, and the divergence and safety
-        # stats on the device (no field of a past frame is kept).
-        state, cg_stats, device_stats = (phi, vel, pressure), [], []
-        for _ in range(k):
-            *state, result, safe = _frame_frozen(
-                *state, weights, solid_phi, config, geom, dt, gravity
-            )
-            cg_stats.append((int(result.cg.iterations), float(result.cg.relative_residual)))
-            device_stats.append(torch.stack(
-                [result.max_divergence.double(), *(s.double() for s in safe)]
-            ))
-        max_div, fits, caps_ok, ndof_c = torch.stack(device_stats).cpu().numpy().T
-        if not (fits.all() and caps_ok.all() and ndof_c.max() <= geom.nd_pad):
-            # The liquid broke the frozen geometry: discard the chunk (the
-            # state before it is untouched), re-run it frame by frame, and
-            # freeze the geometry again from the new state.
-            phi, vel, pressure = per_frame(k)
-            geom = geometry(phi)
-            done += k
-            continue
-        phi, vel, pressure = state
-        stats_frames.extend((it, rel, float(m)) for (it, rel), m in zip(cg_stats, max_div))
-        done += k
-        if on_chunk is not None:
-            on_chunk(done, stats_frames[-k:])
+            if on_chunk is not None:
+                on_chunk(done, stats_frames[-k:])
+    finally:
+        if frame is not None:
+            frame.close()
 
     stats = {
         "iterations": np.asarray([s[0] for s in stats_frames]),

@@ -46,15 +46,16 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
     "gmg_smooth_chunk": (
-        [_I] * 6 + [ctypes.c_double] + [_P] * 12 + [_I, _P] + [_I] * 7 + [_P, _I, _P] + [_I] * 5 + [_P, _P], _I
+        [_I] * 6 + [ctypes.c_double] + [_P] * 14 + [_I] * 6 + [_P, _I, _P] + [_I] * 5 + [_P, _P], _I
     ),
     "gmg_smooth_chunk_grid": ([_I] * 4, _I),
-    "gmg_cg_step": ([_I, _I] + [_P] * 12 + [_P, _I, _P, _I] + [_I] * 11 + [_P, _P], _I),
-    "gmg_residual": ([_I, _I, _I] + [_P] * 7 + [_P, _I, _P, _I] + [_I] * 6 + [_P, _P], _I),
+    "gmg_cg_step": ([_I, _I] + [_P] * 12 + [_P, _P, _P, _I] + [_I] * 11 + [_P, _P], _I),
+    "gmg_residual": ([_I, _I, _I] + [_P] * 7 + [_P, _P, _P, _I] + [_I] * 6 + [_P, _P], _I),
     "gmg_sum_partials": ([_I, _P, ctypes.c_longlong, _P, _P], _I),
     "gmg_halo_gather": ([_I, _P, _P] + [_I] * 9 + [_P, _P], _I),
     "gmg_core_scatter": ([_I, _P, _P] + [_I] * 9 + [_P, _P], _I),
     "gmg_graph_if": ([_P, _P, ctypes.POINTER(_P)], _I),
+    "gmg_graph_frame": ([_P] * 5 + [ctypes.POINTER(_P)], _I),
     "gmg_graph_launch": ([_P, _P], _I),
     "gmg_graph_destroy": ([_P], _I),
 }

@@ -102,30 +102,25 @@ def sum_partials(partials: torch.Tensor) -> torch.Tensor:
 def kernel_tiles(what: str, tiles, diag: torch.Tensor):
     """The `Tiles` a kernel of this module runs over on the grid of `diag`:
     `tiles`, checked against the grid, or (None) the tiles of the cells with
-    diag != 0, built here at the cost of a host sync.  Raises on tiles of
+    diag != 0, built here (on the device, no host read).  Raises on tiles of
     another grid or tile, or on tile lists the kernels cannot take."""
     # Imported here: ops/fused_smoother.py imports this module.
     from geometricmultigridpressuresolver_tpu_torch.ops import fused_smoother
 
     if tiles is None:
-        return fused_smoother.level_tiles(diag != 0, torch.zeros(0, dtype=torch.int32, device=diag.device))
+        return fused_smoother.level_tiles(diag != 0)
     if tuple(tiles.shape) != tuple(diag.shape):
         raise ValueError(f"{what}: tiles built for {tuple(tiles.shape)}, not {tuple(diag.shape)}")
     if tuple(tiles.core) != fused_smoother.CHUNK_TILE:
         raise ValueError(f"{what}: tiles of {tuple(tiles.core)}, the kernels take {fused_smoother.CHUNK_TILE}")
-    gx, gy, gz = fused_smoother.tile_grid(tiles.shape, tiles.core)
-    for name, t in (("active tiles", tiles.active), ("dead tiles", tiles.dead), ("ticket", tiles.ticket)):
-        _cuda.check_cuda_operands(what, (t.numel(),), **{name.replace(" ", "_"): t})
-        if t.dtype != torch.int32:
-            raise TypeError(f"{what}: {name} must be int32, got {t.dtype}")
-    if tiles.active.numel() + tiles.dead.numel() != gx * gy * gz or tiles.ticket.numel() != 1:
-        raise ValueError(f"{what}: tiles do not cover the {gx}x{gy}x{gz} tiles of {tuple(tiles.shape)}")
+    fused_smoother.check_lists(what, tiles)
     return tiles
 
 
 def tile_args(tiles) -> tuple:
-    """The kernels' tile arguments: active, n_active, dead, n_dead."""
-    return (_cuda.ptr(tiles.active), tiles.active.numel(), _cuda.ptr(tiles.dead), tiles.dead.numel())
+    """The kernels' tile arguments: active, dead, counts, and the tile
+    count (the lists' capacity and the launch's grid)."""
+    return (_cuda.ptr(tiles.active), _cuda.ptr(tiles.dead), _cuda.ptr(tiles.counts), tiles.active.numel())
 
 
 def search_matvec_dot_torch(z, p, beta, diag, ew0, ew1, ew2, window: CoreWindow | None = None, p_out=None):
@@ -148,7 +143,7 @@ def search_matvec_dot(
     are a stacked block grid and the dot runs over its core cells.  `tiles`
     are the grid's `fused_smoother.Tiles`, built once per solve from the
     solvable set (on a stacked grid, the cells with diag != 0); None builds
-    them here from diag != 0, a host sync per call.  See the module
+    them here from diag != 0 on every call.  See the module
     docstring for the precondition under which kernel and plain version
     agree on every cell.  `p_out` (a tensor like z, neither z nor p)
     receives p', so a captured CUDA graph can write it to a fixed buffer;
@@ -167,7 +162,7 @@ def search_matvec_dot(
     elif p_out.data_ptr() in (z.data_ptr(), p.data_ptr()):
         raise ValueError(f"{what}: p_out must not be z or p (the step reads their neighbours)")
     ap_out = torch.empty_like(z)
-    # The dot, then one partial per active tile.
+    # The dot, then one partial per tile (the active ones are written).
     scratch = torch.empty(1 + tiles.active.numel(), dtype=z.dtype, device=z.device)
     nx, ny, nz = z.shape
     lib = _cuda.library()
@@ -199,8 +194,8 @@ def residual(x, b, diag, ew0, ew1, ew2, mode: str = "auto", tiles=None):
     x and diag share the compute dtype; b and the result share the storage
     dtype, which is the compute dtype or, for a float32 x, bfloat16 (the
     narrow V-cycle fields: r is formed from the unrounded x, then narrowed).
-    `tiles` as for `search_matvec_dot` (None: built here from diag != 0, a
-    host sync), under the same precondition.
+    `tiles` as for `search_matvec_dot` (None: built here from diag != 0),
+    under the same precondition.
     """
     if not _cuda.use_kernel(mode, x):
         return residual_torch(x, b, diag, ew0, ew1, ew2)

@@ -35,7 +35,10 @@ Tiles without a cell any pass can change (`level_tiles`, built once per
 solve in `level_blocks`, like the JAX package's active-slab lists) are
 never visited: the work buffers are allocated zeroed, which is the pass
 sequence's output there for fields that are zero off the solvable set
-(`smooth_level`'s precondition).  `config.pallas_band_strip` does not
+(`smooth_level`'s precondition).  The lists keep one shape per level
+(padded to the tile and cell counts) and their lengths on the device
+(`Tiles.counts`), which the kernel reads: building them reads nothing on
+the host, so a whole frame can be captured as one CUDA graph.  `config.pallas_band_strip` does not
 change the card's launches.  The tile and depth are fixed in code (`CHUNK_TILE`,
 `CHUNK_DEPTH`); there is no halo, so the residual always rides the last
 chunk (`Chunk.ring` matters only to the block mesh's H-cell halo).
@@ -197,46 +200,69 @@ def tile_occupancy(cells: torch.Tensor, core) -> torch.Tensor:
 
 
 class Tiles(NamedTuple):
-    """The kernels' work lists of one level of `shape`, built once per solve:
-    passes per chunk-kernel launch, the tile, the active tiles and the dead
-    ones (x-major indices, ascending), the band cells (flat indices,
-    ascending; every `b` pass of the chunk kernel runs over them alone), and
-    the CG step's ticket (ops/fused_cg.py: one int32, zero between launches;
-    the launches that use it go to one stream at a time)."""
+    """The kernels' work lists of one level of `shape`, built once per solve
+    with no host read (the JAX package's `_compact_blocks`, ops/
+    pallas_smoother.py:94-103, which pads its active-slab list to the block
+    count and keeps the count on the device): passes per chunk-kernel
+    launch, the tile, the active tiles and the dead ones (x-major indices,
+    ascending, each list padded to the level's tile count), the band cells
+    (flat indices, ascending, padded to the level's cell count; every `b`
+    pass of the chunk kernel runs over them alone), the CG step's ticket
+    (ops/fused_cg.py: one int32, zero between launches; the launches that
+    use it go to one stream at a time) and `counts`, the lists' lengths
+    (n_active, n_dead, n_band) as an int32 device tensor, which the kernels
+    read.  Pad entries hold the list's capacity, an index past the last
+    tile or cell (`compact`)."""
 
     shape: tuple[int, int, int]
     depth: int
     core: tuple[int, int, int]
-    active: torch.Tensor  # int32
-    band: torch.Tensor    # int32
-    dead: torch.Tensor    # int32
+    active: torch.Tensor  # int32, (tiles,)
+    band: torch.Tensor    # int32, (cells,)
+    dead: torch.Tensor    # int32, (tiles,)
     ticket: torch.Tensor  # int32, (1,)
+    counts: torch.Tensor  # int32, (3,): n_active, n_dead, n_band
 
 
-def compact(mask: torch.Tensor, count: int) -> torch.Tensor:
+def compact(mask: torch.Tensor) -> torch.Tensor:
     """The flat indices of the True entries of bool `mask`, ascending, int32
-    (``flatnonzero``), given their `count`: no host sync."""
+    (``flatnonzero``), padded to ``mask.numel()`` entries with the sentinel
+    ``mask.numel()``: no host sync, one shape whatever the mask holds."""
     flat = mask.reshape(-1)
-    slot = torch.where(flat, torch.cumsum(flat, 0, dtype=torch.int32) - 1, count).long()
-    out = torch.empty(count + 1, dtype=torch.int32, device=flat.device)
-    out.scatter_(0, slot, torch.arange(flat.numel(), dtype=torch.int32, device=flat.device))
-    return out[:count]  # the spare last slot took every False entry
+    n = flat.numel()
+    slot = torch.where(flat, torch.cumsum(flat, 0, dtype=torch.int32) - 1, n).long()
+    out = torch.full((n + 1,), n, dtype=torch.int32, device=flat.device)
+    out.scatter_(0, slot, torch.arange(n, dtype=torch.int32, device=flat.device))
+    return out[:n]  # the spare last slot took every False entry
 
 
-def level_tiles(cells: torch.Tensor, band: torch.Tensor, depth: int | None = None,
-                n_active: int | None = None) -> Tiles:
+def list_count(entries: torch.Tensor, capacity: int) -> torch.Tensor:
+    """The length of a padded list (`compact`) whose pad entries are
+    `capacity` or more, as a 0-d int32 device tensor."""
+    return (entries < capacity).sum(dtype=torch.int32)
+
+
+def trimmed(tiles: Tiles) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(active, dead, band) cut to their lengths, for reports and tests:
+    one host read of `counts`."""
+    n_active, n_dead, n_band = tiles.counts.tolist()
+    return tiles.active[:n_active], tiles.dead[:n_dead], tiles.band[:n_band]
+
+
+def level_tiles(cells: torch.Tensor, band: torch.Tensor | None = None, depth: int | None = None) -> Tiles:
     """`Tiles` of a level whose cells a kernel can change are `cells` (bool)
-    and whose band cells are the list `band` (`band_cells`), over
-    `CHUNK_TILE`.  `depth` overrides `CHUNK_DEPTH`.  `n_active` is the
-    number of active tiles (`level_counts`), read here when None (a host
-    sync)."""
+    and whose band cells are the padded list `band` (`band_cells`; None:
+    none), over `CHUNK_TILE`.  `depth` overrides `CHUNK_DEPTH`.  No host
+    sync."""
     depth = CHUNK_DEPTH if depth is None else int(depth)
     occ = tile_occupancy(cells, CHUNK_TILE).reshape(-1)
-    if n_active is None:
-        n_active = int(occ.sum())
+    n_cells = cells.numel()
+    if band is None:
+        band = torch.full((n_cells,), n_cells, dtype=torch.int32, device=occ.device)
+    n_active = occ.sum(dtype=torch.int32)
+    counts = torch.stack((n_active, occ.numel() - n_active, list_count(band, n_cells)))
     ticket = torch.zeros(1, dtype=torch.int32, device=occ.device)
-    return Tiles(tuple(cells.shape), depth, CHUNK_TILE, compact(occ, n_active), band,
-                 compact(~occ, occ.numel() - n_active), ticket)
+    return Tiles(tuple(cells.shape), depth, CHUNK_TILE, compact(occ), band, compact(~occ), ticket, counts)
 
 
 class LevelBlocks(NamedTuple):
@@ -246,22 +272,15 @@ class LevelBlocks(NamedTuple):
     bf16 fields, and the chunk kernel's tiles.  Kept apart from
     LevelCoeffs, which `interop` maps field for field."""
 
-    band_cells: torch.Tensor | None  # int32 flat indices, ascending; None: full passes
+    band_cells: torch.Tensor | None  # int32 flat indices, ascending, padded; None: full passes
     narrow: LevelCoeffs | None       # bf16 inv_diag, diag = 1/inv_diag (float32)
     tiles: Tiles
 
 
-def band_cells(band: torch.Tensor, count: int | None = None) -> torch.Tensor:
-    """Flat indices of the band cells, int32, ascending (``flatnonzero``);
-    `count` of them (`level_counts`), read here when None (a host sync)."""
-    mask = band != 0
-    return compact(mask, int(mask.sum()) if count is None else count)
-
-
-def level_counts(c: LevelCoeffs) -> torch.Tensor:
-    """(band cells, active tiles) of a level as a device tensor, so that
-    the lists of several levels cost one host read (`hierarchy_block_lists`)."""
-    return torch.stack((torch.count_nonzero(c.band), tile_occupancy(c.solvable, CHUNK_TILE).sum()))
+def band_cells(band: torch.Tensor) -> torch.Tensor:
+    """Flat indices of the band cells, int32, ascending (``flatnonzero``),
+    padded to the level's cell count (`compact`): no host sync."""
+    return compact(band != 0)
 
 
 def narrow_coeffs(c: LevelCoeffs) -> LevelCoeffs:
@@ -274,19 +293,14 @@ def narrow_coeffs(c: LevelCoeffs) -> LevelCoeffs:
     return c._replace(inv_diag=inv, diag=diag)
 
 
-def level_blocks(c: LevelCoeffs, config, field_dtype=None, depth: int | None = None,
-                 counts=None) -> LevelBlocks:
+def level_blocks(c: LevelCoeffs, config, field_dtype=None, depth: int | None = None) -> LevelBlocks:
     """`LevelBlocks` of one level for fields stored as `field_dtype`; the
     active tiles are those whose core holds a solvable cell.  `depth`
-    overrides `CHUNK_DEPTH`.  `counts` are the level's `level_counts` on
-    the host, read here when None (a host sync)."""
-    n_band, n_active = level_counts(c).tolist() if counts is None else counts
-    band = band_cells(c.band, n_band)
-    cells = None
-    if config.pallas_band_strip and "b" in schedule_for(config, True) and band.numel():
-        cells = band
+    overrides `CHUNK_DEPTH`.  No host sync."""
+    band = band_cells(c.band)
+    cells = band if config.pallas_band_strip and "b" in schedule_for(config, True) else None
     narrow = narrow_coeffs(c) if field_dtype == NARROW_DTYPE else None
-    return LevelBlocks(cells, narrow, level_tiles(c.solvable, band, depth, n_active))
+    return LevelBlocks(cells, narrow, level_tiles(c.solvable, band, depth))
 
 
 def _results(x, r, dot, emit_residual: bool, emit_dot: bool):
@@ -301,26 +315,34 @@ def _results(x, r, dot, emit_residual: bool, emit_dot: bool):
 def band_pass_torch(x, out, b, c: LevelCoeffs, cells, damping: float):
     """A band-restricted `b` pass: out[cells] = the `b` update of x there,
     in the full plain pass's arithmetic and association order (so the two
-    give equal numbers); other cells of `out` are not touched."""
-    idx = cells.long()
+    give equal numbers); other cells of `out` are not touched.  `cells` may
+    be padded (`band_cells`): a pad entry reads a cell in the grid and
+    writes a spare slot past it, which is dropped, so no host read is
+    needed."""
     nx, ny, nz = x.shape
+    n = x.numel()
+    idx = cells.long().clamp(max=n)
+    q = idx.clamp(max=max(n - 1, 0))  # where a pad entry reads
     flat = x.reshape(-1)
-    k = idx % nz
-    j = (idx // nz) % ny
-    i = idx // (ny * nz)
-    s = torch.zeros(idx.shape, dtype=x.dtype, device=x.device)
-    for coord, n, stride, ew in ((i, nx, ny * nz, c.ew0), (j, ny, nz, c.ew1), (k, nz, 1, c.ew2)):
+    k = q % nz
+    j = (q // nz) % ny
+    i = q // (ny * nz)
+    s = torch.zeros(q.shape, dtype=x.dtype, device=x.device)
+    for coord, size, stride, ew in ((i, nx, ny * nz, c.ew0), (j, ny, nz, c.ew1), (k, nz, 1, c.ew2)):
         e = ew.reshape(-1)
-        has_up, has_lo = coord + 1 < n, coord > 0
-        up = torch.where(has_up, idx + stride, idx)
-        lo = torch.where(has_lo, idx - stride, idx)
-        s = s + torch.where(has_up, e[idx] * flat[up], 0.0)
+        has_up, has_lo = coord + 1 < size, coord > 0
+        up = torch.where(has_up, q + stride, q)
+        lo = torch.where(has_lo, q - stride, q)
+        s = s + torch.where(has_up, e[q] * flat[up], 0.0)
         s = s + torch.where(has_lo, e[lo] * flat[lo], 0.0)
     w = torch.full((), damping, dtype=x.dtype, device=x.device)  # a fill: capturable
     a = 1.0 - w
-    wb = w * c.inv_diag.reshape(-1)[idx].to(x.dtype)
-    bb = b.reshape(-1)[idx].to(x.dtype)
-    out.reshape(-1)[idx] = a * flat[idx] + wb * (bb + s)
+    wb = w * c.inv_diag.reshape(-1)[q].to(x.dtype)
+    bb = b.reshape(-1)[q].to(x.dtype)
+    hit = torch.zeros(n + 1, dtype=torch.bool, device=x.device).index_fill_(0, idx, True)
+    new = torch.empty(n + 1, dtype=x.dtype, device=x.device)
+    new[idx] = a * flat[q] + wb * (bb + s)
+    out.copy_(torch.where(hit[:n].view(x.shape), new[:n].view(x.shape), out))
     return out
 
 
@@ -425,12 +447,9 @@ def smooth_level(
     if c.band.dtype != torch.int8:
         raise TypeError(f"{what}: band must be int8, got {c.band.dtype}")
     tiles = blocks.tiles
-    for name, t in (("tiles", tiles.active), ("band cells", tiles.band)):
-        _cuda.check_cuda_operands(what, (t.numel(),), **{name.replace(" ", "_"): t})
-        if t.dtype != torch.int32:
-            raise TypeError(f"{what}: {name} must be int32, got {t.dtype}")
     if tiles.shape != tuple(b.shape):
         raise ValueError(f"{what}: tiles built for {tiles.shape}, not {tuple(b.shape)}")
+    check_lists(what, tiles)
     if schedule is None:
         schedule = schedule_for(config, forward)
     counter = SHARDED_LAUNCHES if window is not None else NARROW_LAUNCHES if narrow else PASS_LAUNCHES
@@ -462,8 +481,8 @@ def smooth_level(
                 fdt, sdt, xdt, edt, ch.stop - ch.start, kinds, float(config.jacobi_damping),
                 _cuda.ptr(src), _cuda.ptr(buf_a), _cuda.ptr(buf_b), _cuda.ptr(x_store if last else None),
                 _cuda.ptr(r), _cuda.ptr(b), _cuda.ptr(c.inv_diag), _cuda.ptr(c.diag), _cuda.ptr(c.ew0),
-                _cuda.ptr(c.ew1), _cuda.ptr(c.ew2), _cuda.ptr(tiles.band), tiles.band.numel(),
-                _cuda.ptr(tiles.active), tiles.active.numel(), nx, ny, nz, *tiles.core,
+                _cuda.ptr(c.ew1), _cuda.ptr(c.ew2), _cuda.ptr(tiles.band), _cuda.ptr(tiles.active),
+                _cuda.ptr(tiles.counts), nx, ny, nz, *tiles.core,
                 _cuda.ptr(partials), grid, _cuda.ptr(barrier),
                 *fused_cg.window_args(window, b.shape), counter.slot(b), stream,
             ),
@@ -475,7 +494,40 @@ def smooth_level(
     return _results(x_store if narrow else src, r, dot, emit_residual, emit_dot)
 
 
+def check_lists(what: str, tiles: Tiles) -> None:
+    """Raise unless the work lists are int32 CUDA tensors padded to their
+    capacities (the level's tile count for the two tile lists, its cell
+    count for the band) with a (3,) `counts` and a (1,) ticket: the
+    kernels read the lengths from `counts`, so the shapes are all a host
+    check can hold."""
+    n_tiles = 1
+    for g in tile_grid(tiles.shape, tiles.core):
+        n_tiles *= g
+    n_cells = tiles.shape[0] * tiles.shape[1] * tiles.shape[2]
+    lists = (("active tiles", tiles.active, n_tiles), ("dead tiles", tiles.dead, n_tiles),
+             ("band cells", tiles.band, n_cells), ("counts", tiles.counts, 3), ("ticket", tiles.ticket, 1))
+    for name, t, size in lists:
+        if t.dtype != torch.int32:
+            raise TypeError(f"{what}: {name} must be int32, got {t.dtype}")
+        if t.numel() != size:
+            raise ValueError(f"{what}: {name} of {t.numel()} entries do not cover the {size} of {tuple(tiles.shape)}")
+        _cuda.check_cuda_operands(what, (size,), **{name.replace(" ", "_"): t})
+
+
 _GRIDS: dict = {}
+# The (compute, storage, x, edge-weight) dtype codes the chunk kernel is
+# built for (csrc/smoother.cu GMG_CHUNK_TYPES).
+_INSTANCES = (
+    (0, 0, 0, 0), (0, 0, 0, 2), (1, 1, 1, 1), (1, 1, 1, 0), (1, 1, 1, 2),
+    (0, 2, 2, 0), (0, 2, 2, 2), (0, 2, 0, 0), (0, 2, 0, 2),
+)
+
+
+def prepare_grids() -> None:
+    """Look up every instance's grid on the current device (`chunk_grid`),
+    so that a CUDA graph capture finds them made."""
+    for codes in _INSTANCES:
+        chunk_grid(*codes)
 
 
 def chunk_grid(fdt: int, sdt: int, xdt: int, edt: int) -> int:

@@ -163,8 +163,24 @@ def restrict_matrix(n_fine: int, n_coarse: int) -> np.ndarray:
 
 @functools.lru_cache(maxsize=256)
 def _matrix(rows: int, cols: int, shift: int, live: int, scale: float, device, dtype) -> torch.Tensor:
-    """`scale` * `_band(...)` as a tensor, made once per device and dtype."""
+    """`scale` * `_band(...)` as a tensor, made once per device and dtype:
+    never during a CUDA graph capture, which would take it from the
+    graph's memory pool and copy it from the host (`prepare`)."""
+    if torch.device(device).type == "cuda" and torch.cuda.is_current_stream_capturing():
+        raise RuntimeError("the transfer matrices must exist before a CUDA graph capture (transfer.prepare)")
     return torch.as_tensor(scale * _band(rows, cols, shift, live), dtype=dtype, device=device)
+
+
+def prepare(shapes, device, dtypes) -> None:
+    """Make the matrix form's matrices (cached) for levels of `shapes`, in
+    each of `dtypes`: one restriction and one prolong-add per pair of
+    levels on zero fields."""
+    for dtype in dtypes:
+        for fine, coarse in zip(shapes, shapes[1:]):
+            f = torch.zeros(fine, dtype=dtype, device=device)
+            c = torch.zeros(coarse, dtype=dtype, device=device)
+            restrict_mm(f, torch.ones(coarse, dtype=torch.bool, device=device))
+            prolong_add_mm(f, c, torch.ones(fine, dtype=torch.bool, device=device))
 
 
 def restrict_axis_matrix(x: torch.Tensor, axis: int, n_out: int, margin: int) -> torch.Tensor:

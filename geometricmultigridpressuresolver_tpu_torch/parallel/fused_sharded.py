@@ -175,7 +175,7 @@ def stacked_cg_tiles(prehaloed_cg: tuple) -> fused_smoother.Tiles:
     once per solve: those whose core holds a cell with diag != 0 (the
     stacked coefficients carry no `solvable`); no band cells."""
     diag = prehaloed_cg[0]
-    return fused_smoother.level_tiles(diag != 0, torch.zeros(0, dtype=torch.int32, device=diag.device))
+    return fused_smoother.level_tiles(diag != 0)
 
 
 def cg_step_sharded(z, p, beta, c: LevelCoeffs, config, mesh, prehaloed_cg=None, tiles=None, shape=None,

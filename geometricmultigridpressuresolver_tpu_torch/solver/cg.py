@@ -31,6 +31,14 @@ with the current iterate and `converged` False (unless that iteration
 converged).  Every scalar (alpha, beta, rho) stays a 0-d device tensor;
 the fused CG step reads beta by pointer.
 
+A captured frame (`solver.graph.FrameGraph`, the fused frame loop of
+`models.simulate.run_fused`) takes a third path, `solve_pcg_fused(
+device_loop=)`, which reads nothing on the host: the zero-RHS and
+"converged at iteration 0" early returns become device predicates
+(`running` dropped before the loop, the result picked with `torch.where`),
+and `CGResult`'s scalars stay 0-d device tensors -- the JAX package's
+whole solve under `while_loop`.
+
 Across ranks (`solve_pcg_fused(ranks=)`) the vectors are a rank's blocks
 and every dot and norm is summed over the ranks in rank order, so
 ||r||^2 -- and with it the exit test -- is the same bits on every rank,
@@ -50,6 +58,10 @@ from geometricmultigridpressuresolver_tpu_torch.ops import blas
 
 
 class CGResult(NamedTuple):
+    """A solve's result.  On the device-only path (`solve_pcg_fused(
+    device_loop=)`) `iterations`, `relative_residual` and `converged` are
+    0-d device tensors (int32, the solve dtype, bool), read by nothing."""
+
     x: torch.Tensor
     iterations: int
     relative_residual: float     # ||r|| / ||b|| at exit (recurrence residual)
@@ -116,6 +128,22 @@ class _Loop:
 
     def running(self, rr_h: float, iteration: int) -> bool:
         return rr_h > self.threshold_h and iteration < self.max_iterations
+
+    def device_result(self, x, zero_rhs, it, rr) -> CGResult:
+        """`result` with no host read: `zero_rhs`, the iteration count `it`
+        and the exit's ||r||^2 `rr` are device tensors, and so are the
+        result's scalars."""
+        x = torch.where(zero_rhs, torch.zeros_like(x), x)
+        rel = torch.where(zero_rhs, torch.zeros_like(rr), self.relative(rr))
+        converged = zero_rhs | (rr <= self.threshold)
+        hist = None
+        if self.history is not None:
+            safe = torch.where(self.b_norm2 == 0, torch.ones_like(self.b_norm2), self.b_norm2)
+            hist = torch.sqrt(self.history / safe)
+            steps = torch.arange(hist.numel(), device=hist.device)
+            hist = torch.where(steps <= it, hist, float("nan"))  # nothing past the exit
+            hist = torch.where((steps == 0) & zero_rhs, 0.0, hist)
+        return CGResult(x, it, rel, converged, hist)
 
     def result(self, x, iteration: int, rr_h: float, rel_h: float) -> CGResult:
         hist = None
@@ -286,6 +314,7 @@ def solve_pcg_fused(
     interrupt_check: Callable[[int], bool] | None = None,
     ranks=None,
     run_loop: Callable | None = None,
+    device_loop: Callable | None = None,
 ) -> CGResult:
     """PCG with a fused search-direction / mat-vec / dot step.
 
@@ -305,6 +334,15 @@ def solve_pcg_fused(
 
     Host reads: one for ||b||^2, the threshold and the first ||r||^2, then
     what `run_loop` makes (one per iteration eagerly).
+
+    `device_loop(cg, state)` instead takes the path that reads nothing on
+    the host (the JAX package's whole solve under `while_loop`, the CG
+    loop of a captured frame, `solver.graph.FrameGraph`): the first
+    iteration runs whatever the state, `running` is dropped where the loop
+    would not have started (a zero right-hand side, or the tolerance met
+    at iteration 0), `device_loop` runs the loop while `running` holds,
+    and the result is picked on the device (`_Loop.device_result`).  No
+    `interrupt_check` on this path.
     """
     if project_null_space:
         preconditioner_dot = None
@@ -326,6 +364,11 @@ def solve_pcg_fused(
         x = x0.to(dtype).clone()
         r = project(residual(x, b))
     rr = blas.squared_l2_norm(r, solvable, ranks)
+    if device_loop is not None:
+        if interrupt_check is not None:
+            raise ValueError("the device-only loop takes no interrupt_check")
+        cg = FusedCG(step_p, preconditioner_dot, solvable, project_null_space, loop, dtype)
+        return _solve_on_device(cg, x, r, rr, device_loop)
     rr_h, rel_h = loop.fetch(rr, loop.relative(rr))
     if loop.zero_rhs:
         return loop.result(x, 0, 0.0, 0.0)
@@ -343,6 +386,32 @@ def solve_pcg_fused(
     it, rr_h, rel_h = (run_loop or run_eager)(cg, s, interrupt_check)
     cg.tail(s)  # the last iteration's preconditioner, as each iteration runs one
     return loop.result(s.x, it, rr_h, rel_h)
+
+
+def _solve_on_device(cg: FusedCG, x, r, rr, device_loop) -> CGResult:
+    """`solve_pcg_fused` from its initial residual on, with no host read
+    (see its docstring)."""
+    loop, dev = cg.loop, x.device
+    zero_rhs = loop.b_norm2 == 0
+    started = (rr > loop.threshold) & ~zero_rhs
+    if loop.max_iterations <= 0:
+        started = started & False
+    x_start, rr_start = x.clone(), rr.clone()
+    z, rho = cg.preconditioner_dot(r)
+    z = cg.project(z)
+    rho = rho.reshape(()).to(cg.dtype).clone()
+    loop.record(0, rr)
+    it0 = torch.zeros((), dtype=torch.int32, device=dev)
+    stop = torch.zeros((), dtype=torch.bool, device=dev)
+    s = FusedState(x, r, z, z, rho, torch.zeros_like(rho), rr, it0, stop, stop.clone(), loop.history)
+    cg.head(s)
+    s.running.logical_and_(started)
+    device_loop(cg, s)
+    cg.tail(s)  # the last iteration's preconditioner, as each iteration runs one
+    it = torch.where(started, s.it, torch.zeros_like(s.it))
+    return loop.device_result(
+        torch.where(started, s.x, x_start), zero_rhs, it, torch.where(started, s.rr, rr_start)
+    )
 
 
 def recomputed_residual_norms(residual, x, b, solvable, ranks=None):

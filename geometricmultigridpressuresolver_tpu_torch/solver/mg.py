@@ -355,6 +355,23 @@ def coarse_matrix(c: stencil.LevelCoeffs, nd_pad: int):
     return a, dofs[:nd_pad], ndof
 
 
+def invert(a: torch.Tensor) -> torch.Tensor:
+    """The inverse of a square matrix with no host sync (`inv_ex`, its
+    error check skipped), through cuSOLVER on a CUDA device: PyTorch's
+    default linalg backend may pick MAGMA, whose LU works partly on the
+    host and cannot be captured in a CUDA graph (a frame of
+    `models.simulate.run_fused` is), so every card path factors with the
+    same library and gives the same bits eagerly and captured."""
+    if not a.is_cuda:
+        return torch.linalg.inv_ex(a)[0]
+    backend = torch.backends.cuda.preferred_linalg_library()
+    torch.backends.cuda.preferred_linalg_library("cusolver")
+    try:
+        return torch.linalg.inv_ex(a)[0]
+    finally:
+        torch.backends.cuda.preferred_linalg_library(backend)
+
+
 def coarse_system_card(c: stencil.LevelCoeffs, nd_pad: int):
     """The card path of the coarsest level's direct solver (JAX
     `_finish_hierarchy`'s accelerator branch, mg.py:477-499): the padded
@@ -375,7 +392,7 @@ def coarse_system_card(c: stencil.LevelCoeffs, nd_pad: int):
     if nd_pad > COARSE_INVERSE_MAX_PAD:
         chol, info = torch.linalg.cholesky_ex(a)
         return dofs, empty, torch.where(info == 0, chol, float("nan"))
-    minv = torch.linalg.inv_ex(a)[0]
+    minv = invert(a)
     return dofs, 0.5 * (minv + minv.T), empty
 
 
@@ -385,15 +402,16 @@ def coarse_system_device(c: stencil.LevelCoeffs, nd_pad: int):
     the counterpart of the JAX package's `_coarse_system_traced`.
 
     `coarse_matrix` assembles the system in a bucket of `nd_pad` slots the
-    caller sizes; then `torch.linalg.inv_ex` (the inverse without its
-    error check, which would sync the host; the JAX package's traced path
-    also always inverts, whatever the bucket), symmetrized.  `ndof` is a
+    caller sizes; then `invert` (`torch.linalg.inv_ex` through cuSOLVER,
+    its error check skipped, which would sync the host; the JAX package's
+    traced path also always inverts, whatever the bucket), symmetrized.
+    Nothing here reads the host, so a captured frame holds it.  `ndof` is a
     device scalar, and `ndof > nd_pad` means the bucket overflowed (the
     preconditioner is then weakened but still symmetric; `run_fused` checks
     it).
     """
     a, dofs, ndof = coarse_matrix(c, nd_pad)
-    minv = torch.linalg.inv_ex(a)[0]
+    minv = invert(a)
     minv = 0.5 * (minv + minv.T)
     return dofs, minv, ndof
 
@@ -519,7 +537,7 @@ def hierarchy_block_lists(hier: MGHierarchy, config: SolverConfig, mesh=None):
     blocks) on sharded ones, None for the coarsest.  Either kind's `tiles`
     are the active tiles of the level's own grid; "plain" levels have none.
     A CG loop builds this once and passes it to every `v_cycle` (JAX
-    mg.py:729-768).  Across ranks a sharded level's entry holds the rank's
+    mg.py:729-768); on a single device it reads nothing on the host.  Across ranks a sharded level's entry holds the rank's
     haloed block (its coefficients exchanged here once)."""
     flags = level_flags(hier, config, mesh)
     fdts = level_field_dtypes(hier, config, flags)
@@ -527,12 +545,6 @@ def hierarchy_block_lists(hier: MGHierarchy, config: SolverConfig, mesh=None):
     shapes = level_shapes(hier)
     if isinstance(mesh, DistMesh):
         _check_rank_levels(shapes, flags, mesh)
-    # The single-device levels' list lengths in one host read.
-    single = [lv for lv, c in enumerate(hier.levels) if lv in smoothed and flags[lv] == "single"]
-    counts = {}
-    if single:
-        read = torch.stack([fused_smoother.level_counts(hier.levels[lv]) for lv in single]).tolist()
-        counts = dict(zip(single, read))
     out = []
     for level, c in enumerate(hier.levels):
         if level not in smoothed or flags[level] == "plain":
@@ -540,7 +552,7 @@ def hierarchy_block_lists(hier: MGHierarchy, config: SolverConfig, mesh=None):
         elif flags[level] == "sharded":
             out.append(fused_sharded.sharded_blocks(c, mesh, config.kernel_mode, shapes[level]))
         else:
-            out.append(fused_smoother.level_blocks(c, config, fdts[level], counts=counts[level]))
+            out.append(fused_smoother.level_blocks(c, config, fdts[level]))
     return tuple(out)
 
 

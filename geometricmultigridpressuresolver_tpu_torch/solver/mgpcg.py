@@ -117,7 +117,7 @@ def fine_tiles(problem: PoissonProblem, block_lists=None) -> fused_smoother.Tile
     """The active tiles of the finest CG operator's grid, for the CG-step
     and residual kernels: those of the V-cycle's `block_lists`
     (`mg.hierarchy_block_lists`) when given and the fine level has them,
-    else built here (a host sync)."""
+    else built here (on the device)."""
     if block_lists is not None and block_lists[0] is not None:
         return block_lists[0].tiles
     fine = problem.fine
@@ -310,11 +310,13 @@ def run_stages(
     x0: torch.Tensor | None,
     config: SolverConfig,
     interrupt_check=None,
+    device_loop=None,
 ) -> cg_mod.CGResult:
     """The CG loop of `solve` on operators built by `solve_stages`, for
     inputs from `solve_inputs` (a caller that reuses the operators, as
     `free_surface.project` does for its recomputed residual), driven as
-    `loop_runner` says."""
+    `loop_runner` says, or with no host read by `device_loop`
+    (`cg.solve_pcg_fused`; a captured frame, `graph.FrameGraph`)."""
     return cg_mod.solve_pcg_fused(
         stages.step_p,
         stages.residual,
@@ -329,7 +331,8 @@ def run_stages(
         record_residuals=config.record_residuals,
         interrupt_check=interrupt_check,
         ranks=stages.ranks,
-        run_loop=loop_runner(stages, rhs),
+        run_loop=None if device_loop is not None else loop_runner(stages, rhs),
+        device_loop=device_loop,
     )
 
 

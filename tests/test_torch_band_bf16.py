@@ -71,11 +71,15 @@ def hier32(domain32):
 @pytest.mark.parametrize("level", [0, 1, 2])
 def test_band_list_equals_flatnonzero(hier32, level):
     jh, th, _, _ = hier32
-    cells = fused_smoother.band_cells(th.levels[level].band)
-    assert cells.dtype == torch.int32
+    band = th.levels[level].band
+    cells = fused_smoother.band_cells(band)
+    assert cells.dtype == torch.int32 and cells.numel() == band.numel()
     want = np.flatnonzero(np.asarray(jh.levels[level].band))
     assert want.size > 0
-    np.testing.assert_array_equal(cells.numpy(), want)
+    # Padded to the level's cell count with the sentinel cell count.
+    assert int(fused_smoother.list_count(cells, band.numel())) == want.size
+    np.testing.assert_array_equal(cells[:want.size].numpy(), want)
+    assert (cells[want.size:] == band.numel()).all()
 
 
 def test_pass_plan_band_only_passes():

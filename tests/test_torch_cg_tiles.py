@@ -8,9 +8,9 @@ level's `Tiles` and store zeros on the dead ones; they run only on the card
     plain CG step and residual are zero on every cell outside the active
     tiles (as the Pallas kernels' outputs are, in interpret mode), and the
     dot over the active tiles is the full dot (1e-12 in fp64);
-  * the dead-tile lists and the ticket of `level_tiles`, and the stacked CG
-    tiles of a block mesh (`diag != 0` on `prehalo_cg_coeffs`), against a
-    brute-force occupancy;
+  * the dead-tile lists (padded, their lengths in `Tiles.counts`) and the
+    ticket of `level_tiles`, and the stacked CG tiles of a block mesh
+    (`diag != 0` on `prehalo_cg_coeffs`), against a brute-force occupancy;
   * the wrappers with `tiles=` on CPU tensors are the plain versions and
     count no launch; tiles of another grid or tile are refused;
   * the solve hands the fine level's tiles to both kernels: those of the
@@ -45,7 +45,7 @@ def _dead_cells(tiles) -> torch.Tensor:
     lx, ty, tz = tiles.core
     _, gy, gz = fused_smoother.tile_grid(tiles.shape, tiles.core)
     dead = torch.ones(tiles.shape, dtype=torch.bool)
-    for t in tiles.active.tolist():
+    for t in fused_smoother.trimmed(tiles)[0].tolist():
         i, j, k = t // (gy * gz), t // gz % gy, t % gz
         dead[i * lx:(i + 1) * lx, j * ty:(j + 1) * ty, k * tz:(k + 1) * tz] = False
     return dead
@@ -63,7 +63,7 @@ def test_plain_cg_step_and_residual_are_zero_outside_the_tiles(fixtures, dtype):
     cj, ct, z, p = fixtures[dtype]
     tiles = _tiles(ct)
     dead = _dead_cells(tiles)
-    assert dead.any() and 0 < tiles.active.numel()
+    assert dead.any() and 0 < int(tiles.counts[0])
     beta = torch.tensor(0.7371, dtype=torch.from_numpy(z).dtype)
     ops = (ct.diag, ct.ew0, ct.ew1, ct.ew2)
     pn, ap, dot = fused_cg.search_matvec_dot_torch(torch.from_numpy(z), torch.from_numpy(p), beta, *ops)
@@ -91,8 +91,10 @@ def test_level_tiles_list_the_dead_tiles_and_a_zero_ticket(shape):
     cells = torch.from_numpy(rng.random(shape) < 0.02)
     tiles = fused_smoother.level_tiles(cells, torch.zeros(0, dtype=torch.int32))
     active, dead = _brute_force(cells, tiles.core)
-    assert tiles.active.tolist() == active and tiles.dead.tolist() == dead
-    assert tiles.dead.dtype == torch.int32
+    got_active, got_dead, got_band = fused_smoother.trimmed(tiles)
+    assert got_active.tolist() == active and got_dead.tolist() == dead and got_band.numel() == 0
+    assert tiles.dead.dtype == torch.int32 and tiles.dead.numel() == len(active) + len(dead)
+    assert tiles.counts.tolist() == [len(active), len(dead), 0]
     assert tiles.ticket.dtype == torch.int32 and tiles.ticket.tolist() == [0]
 
 
@@ -105,8 +107,9 @@ def test_stacked_cg_tiles_match_brute_force(fixtures):
     cells = hcg[0] != 0
     active, dead = _brute_force(cells, tiles.core)
     assert tiles.shape == tuple(hcg[0].shape) and tiles.core == fused_smoother.CHUNK_TILE
-    assert tiles.active.tolist() == active and tiles.dead.tolist() == dead
-    assert 0 < len(active) and 0 < len(dead) and tiles.band.numel() == 0
+    got_active, got_dead, got_band = fused_smoother.trimmed(tiles)
+    assert got_active.tolist() == active and got_dead.tolist() == dead
+    assert 0 < len(active) and 0 < len(dead) and got_band.numel() == 0
 
 
 @pytest.mark.parametrize("which", ["cg_step", "cg_step_window", "residual"])
@@ -161,7 +164,8 @@ def test_solve_hands_the_fine_tiles_to_the_kernels(splash40):
     fine = problem.fine
     own = mgpcg.fine_tiles(problem)
     active, dead = _brute_force(fine.solvable, own.core)
-    assert own.active.tolist() == active and own.dead.tolist() == dead
+    got_active, got_dead, _ = fused_smoother.trimmed(own)
+    assert got_active.tolist() == active and got_dead.tolist() == dead
     blocks = mg.hierarchy_block_lists(problem.hier, cfg)
     assert mgpcg.fine_tiles(problem, blocks) is blocks[0].tiles
     assert torch.equal(blocks[0].tiles.active, own.active)

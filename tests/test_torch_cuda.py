@@ -121,7 +121,7 @@ def test_cg_step_and_residual_kernels_match_plain(device, dtype, ew_dtype, grid_
     beta = torch.tensor(0.37, dtype=dtype, device=device)
     tiles = _cg_tiles(c)
     grid = fused_smoother.tile_grid(c.shape, tiles.core)
-    assert 0 < tiles.active.numel() < grid[0] * grid[1] * grid[2]
+    assert 0 < int(tiles.counts[0]) < grid[0] * grid[1] * grid[2]
     assert torch.equal(tiles.active, fused_smoother.level_tiles(c.diag != 0, tiles.band).active)
     with_tiles = _check_cg_kernels(c, z, p, beta, tiles, grid_tol, dot_tol)
     without = _check_cg_kernels(c, z, p, beta, None, grid_tol, dot_tol)
@@ -549,7 +549,7 @@ def test_chunk_depths_match_plain(device, depth, variant):
     cfg = SolverConfig(solve_dtype=torch.float32, mg_ew_dtype=torch.bfloat16)
     blocks = fused_smoother.level_blocks(c, cfg, depth=depth)
     grid = fused_smoother.tile_grid(c.shape, blocks.tiles.core)
-    assert blocks.tiles.depth == depth and 0 < blocks.tiles.active.numel() < grid[0] * grid[1] * grid[2]
+    assert blocks.tiles.depth == depth and 0 < int(blocks.tiles.counts[0]) < grid[0] * grid[1] * grid[2]
     kw = VARIANTS[variant]
     before = fused_smoother.PASS_LAUNCHES.count
     _check_chunks(device, c, x, b, cfg, blocks, kw, 1e-5, 1e-4)
@@ -575,7 +575,7 @@ def test_chunk_kernel_dead_tiles_only(device, dtype):
     c = c._replace(solvable=torch.zeros_like(c.solvable))
     cfg = SolverConfig(solve_dtype=dtype)
     blocks = fused_smoother.level_blocks(c, cfg)
-    assert blocks.tiles.active.numel() == 0
+    assert int(blocks.tiles.counts[0]) == 0
     x, b = torch.zeros_like(x), torch.zeros_like(b)
     junk = torch.full_like(x, float("nan"))
     for kw in VARIANTS.values():
@@ -590,7 +590,7 @@ def _active_cells(tiles, device):
     lx, ty, tz = tiles.core
     gx, gy, gz = fused_smoother.tile_grid(tiles.shape, tiles.core)
     occ = torch.zeros(gx * gy * gz, dtype=torch.bool, device=device)
-    occ[tiles.active.long()] = True
+    occ[fused_smoother.trimmed(tiles)[0].long()] = True
     full = occ.reshape(gx, 1, gy, 1, gz, 1).expand(gx, lx, gy, ty, gz, tz).reshape(gx * lx, gy * ty, gz * tz)
     nx, ny, nz = tiles.shape
     return full[:nx, :ny, :nz]
@@ -665,7 +665,7 @@ def test_cg_kernels_dead_tiles_only(device, dtype):
     that are never read (NaN)."""
     c, _, _ = _random_level(device, (33, 20, 70), dtype, None)
     tiles = fused_smoother.level_tiles(torch.zeros_like(c.solvable), fused_smoother.band_cells(c.band))
-    assert tiles.active.numel() == 0
+    assert int(tiles.counts[0]) == 0
     junk = torch.full(c.shape, float("nan"), dtype=dtype, device=device)
     beta = torch.tensor(0.5, dtype=dtype, device=device)
     pn, ap, dot = fused_cg.search_matvec_dot(junk, junk, beta, c.diag, c.ew0, c.ew1, c.ew2, mode="cuda", tiles=tiles)
@@ -1051,3 +1051,128 @@ def test_graph_capture_raises(device, monkeypatch):
         mgpcg.solve(setup.problem, rhs, config=cfg)
     monkeypatch.undo()
     assert mgpcg.solve(setup.problem, rhs, config=cfg).converged  # the card is usable again
+
+
+def test_device_counts_match_host_built_lists(device):
+    """The work lists built on the card (padded, lengths in `Tiles.counts`)
+    are the host-built lists, and the kernels reading their lengths from
+    the device give the bits of a launch over host-built lists padded with
+    other entries in place of the sentinel: nothing is read past a count."""
+    c, x, b, cfg = _level(device, torch.float32, torch.bfloat16)
+    blocks = fused_smoother.level_blocks(c, cfg)
+    tiles = blocks.tiles
+    occ = fused_smoother.tile_occupancy(c.solvable, tiles.core).reshape(-1).cpu()
+    host = (torch.nonzero(occ).reshape(-1), torch.nonzero(~occ).reshape(-1),
+            torch.nonzero(c.band.reshape(-1).cpu()).reshape(-1))
+    for got, want in zip(fused_smoother.trimmed(tiles), host):
+        assert torch.equal(got.cpu().long(), want)
+
+    def padded(lst, cap):
+        fill = lst[torch.arange(cap - lst.numel()) % max(lst.numel(), 1)] if lst.numel() else torch.zeros(cap)
+        return torch.cat([lst, fill.to(lst.dtype)]).to(torch.int32).to(device)
+
+    n_tiles = tiles.active.numel()
+    other = tiles._replace(active=padded(host[0], n_tiles), dead=padded(host[1], n_tiles),
+                           band=padded(host[2], c.band.numel()),
+                           counts=torch.tensor([h.numel() for h in host], dtype=torch.int32, device=device))
+    beta = torch.tensor(0.37, device=device)
+    ops = (c.diag, c.ew0, c.ew1, c.ew2)
+    for kw in VARIANTS.values():
+        xx = None if kw.get("x_is_zero") else x
+        got = fused_smoother.smooth_level(xx, b, c, cfg, blocks=blocks, **kw)
+        want = fused_smoother.smooth_level(xx, b, c, cfg, blocks=blocks._replace(tiles=other), **kw)
+        got, want = (got, want) if isinstance(got, tuple) else ((got,), (want,))
+        assert all(torch.equal(g, w) for g, w in zip(got, want))
+    step = fused_cg.search_matvec_dot(x, b, beta, *ops, mode="cuda", tiles=tiles)
+    assert all(torch.equal(g, w) for g, w in zip(
+        step, fused_cg.search_matvec_dot(x, b, beta, *ops, mode="cuda", tiles=other)))
+    assert torch.equal(fused_cg.residual(x, b, *ops, mode="cuda", tiles=tiles),
+                       fused_cg.residual(x, b, *ops, mode="cuda", tiles=other))
+
+
+def _frames(device, n=64, frames=4, chunk=2, eager=False, **kw):
+    """run_fused on the n^3 splash (fp32, the bench configuration) with its
+    frames as one graph each, or eagerly (`graph.EmulatedFrame`); the
+    device launch counts and `graph.STATS` of the call."""
+    from geometricmultigridpressuresolver_tpu_torch.ops import _cuda
+    from geometricmultigridpressuresolver_tpu_torch.solver import graph
+
+    cfg = SolverConfig(solve_dtype=torch.float32, mg_ew_dtype=torch.bfloat16, tolerance=1e-5)
+    phi, velocity = sdf.splash_scene((n,) * 3, device=device, dtype=torch.float32)
+    weights = sdf.open_box_weights((n,) * 3, device=device, dtype=torch.float32)
+    for c in _cuda.COUNTERS:
+        c.reset()
+    graph.STATS.reset()
+    runner = simulate.frame_runner
+    if eager:
+        simulate.frame_runner = lambda dev: graph.EmulatedFrame
+    try:
+        out = simulate.run_fused(phi, velocity, weights, num_frames=frames, chunk=chunk, config=cfg, **kw)
+    finally:
+        simulate.frame_runner = runner
+    torch.cuda.synchronize()
+    return out, {c.name: c.count for c in _cuda.COUNTERS}, dict(vars(graph.STATS))
+
+
+def test_frame_graph_bit_equal_to_eager_frames(device):
+    """Four 64^3 frames in chunks of 2, each one launch of the captured
+    frame: the eager frames' iterations, fields and launch counts bit for
+    bit, one capture, one launch per frame, one stats read per chunk."""
+    done = []
+    (g_phi, g_vel, g_p, g_stats), launches, stats = _frames(device, on_chunk=lambda k, s: done.append(k))
+    (e_phi, e_vel, e_p, e_stats), e_launches, e_graph = _frames(device, eager=True)
+    assert done == [2, 4]
+    assert list(g_stats["iterations"]) == list(e_stats["iterations"]) and min(g_stats["iterations"]) > 1
+    assert torch.equal(g_phi, e_phi) and torch.equal(g_p, e_p)
+    assert all(torch.equal(a, b) for a, b in zip(g_vel, e_vel))
+    assert launches == e_launches and launches["cg_step"] == sum(g_stats["iterations"])
+    assert (stats["frame_captures"], stats["frame_launches"], stats["frame_reads"], stats["captures"]) == (1, 4, 2, 0)
+    assert (e_graph["frame_captures"], e_graph["frame_launches"], e_graph["frame_reads"]) == (0, 0, 2)
+
+
+def test_frame_graph_frames_read_nothing_on_the_host(device, monkeypatch):
+    """Every frame launch under set_sync_debug_mode("error"): a host sync
+    inside a frame would raise; the chunk's one read comes after them."""
+    from geometricmultigridpressuresolver_tpu_torch.solver import graph
+
+    launch = graph.FrameGraph.launch
+
+    def strict(self):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            launch(self)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+
+    monkeypatch.setattr(graph.FrameGraph, "launch", strict)
+    (_, _, _, stats), _, counted = _frames(device, frames=4, chunk=4)
+    assert counted["frame_launches"] == 4 and counted["frame_reads"] == 1
+    assert all(r <= 1e-5 for r in stats["relative_residual"])
+
+
+def test_frame_capture_raises_and_the_next_capture_works(device, monkeypatch):
+    """A failed frame capture (here: a host read inside the CG iteration)
+    raises, runs nothing eagerly in its place, and leaves no capture open:
+    the next run_fused captures and runs; its frame pool is released when
+    it returns."""
+    from geometricmultigridpressuresolver_tpu_torch.solver import cg, graph
+
+    tail = cg.FusedCG.tail
+
+    def reading_tail(self, s):
+        tail(self, s)
+        float(s.rho)  # a sync: illegal while capturing
+
+    monkeypatch.setattr(cg.FusedCG, "tail", reading_tail)
+    with pytest.raises(RuntimeError):
+        _frames(device, frames=2, chunk=2)
+    assert graph.STATS.frame_launches == 0
+    monkeypatch.undo()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    before = _private_pools()
+    (_, _, _, stats), _, counted = _frames(device, frames=2, chunk=2)
+    assert counted["frame_captures"] == 1 and counted["frame_launches"] == 2 and len(stats["iterations"]) == 2
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    assert _private_pools() <= before

@@ -5,8 +5,10 @@ on the tiles that `level_tiles` lists as active and leaves the others at
 the zeros its buffers start from; it runs only on the card
 (tests/test_torch_cuda.py).  Here:
 
-  * the active-tile list against a brute-force occupancy, on a 40^3 splash,
-    on a stacked block-mesh grid and on shapes the tiles do not divide;
+  * the active- and dead-tile lists and the band cells against a
+    brute-force occupancy, on a 40^3 splash, on a stacked block-mesh grid
+    and on shapes the tiles do not divide: padded to their capacities,
+    their lengths in `Tiles.counts`;
   * the chunk plan against the JAX package's chunking (the chunks
     `smooth_level_pallas` hands to `fused_smooth`) and its spare-ring rule
     (`residual_fusable` and the ValueError of `fused_smooth`), with the same
@@ -48,9 +50,18 @@ def _brute_force(cells: torch.Tensor, core):
 
 
 def _assert_tiles(tiles, cells):
-    active, _ = _brute_force(cells, tiles.core)
-    assert tiles.active.dtype == torch.int32
-    assert tiles.active.tolist() == active
+    """The lists against the brute force: their lengths in `counts`, and
+    each padded to its capacity with the capacity as the sentinel."""
+    active, dead = _brute_force(cells, tiles.core)
+    assert tiles.active.dtype == tiles.dead.dtype == tiles.counts.dtype == torch.int32
+    got_active, got_dead, got_band = fused_smoother.trimmed(tiles)
+    assert got_active.tolist() == active and got_dead.tolist() == dead
+    n_tiles, n_cells = len(active) + len(dead), cells.numel()
+    assert tiles.active.numel() == tiles.dead.numel() == n_tiles and tiles.band.numel() == n_cells
+    assert tiles.counts.tolist() == [len(active), len(dead), got_band.numel()]
+    for t, n, cap in ((tiles.active, len(active), n_tiles), (tiles.dead, len(dead), n_tiles),
+                      (tiles.band, got_band.numel(), n_cells)):
+        assert (t[n:] == cap).all() and (t[:n] < cap).all()
     assert tiles.shape == tuple(cells.shape)
 
 
@@ -68,7 +79,7 @@ def test_active_tiles_of_a_splash_match_brute_force(splash40, level):
     blocks = fused_smoother.level_blocks(c, SolverConfig())
     tiles = blocks.tiles
     assert (tiles.depth, tiles.core) == (fused_smoother.CHUNK_DEPTH, fused_smoother.CHUNK_TILE)
-    assert 0 < tiles.active.numel()
+    assert 0 < int(tiles.counts[0])
     _assert_tiles(tiles, c.solvable)
     assert torch.equal(tiles.band, blocks.band_cells)
 
@@ -83,13 +94,13 @@ def test_active_tiles_of_a_stacked_grid_match_brute_force(splash40):
     assert blocks.band_cells is None and blocks.narrow is None
     cells = (hc.inv_diag != 0) | (hc.band != 0)
     _assert_tiles(blocks.tiles, cells)
-    np.testing.assert_array_equal(blocks.tiles.band.numpy(), np.flatnonzero(hc.band.numpy()))
+    np.testing.assert_array_equal(fused_smoother.trimmed(blocks.tiles)[2].numpy(), np.flatnonzero(hc.band.numpy()))
     # Every solvable global cell lies in some active stacked tile.
     geom = halo.geometry(make_mesh(4, device="cpu"), c.shape)
     occupied = torch.zeros(hc.inv_diag.shape, dtype=torch.bool)
     lx, ty, tz = blocks.tiles.core
     gy, gz = (-(-n // t) for n, t in zip(hc.inv_diag.shape[1:], (ty, tz)))
-    for t in blocks.tiles.active.tolist():
+    for t in fused_smoother.trimmed(blocks.tiles)[0].tolist():
         i, j, k = t // (gy * gz), t // gz % gy, t % gz
         occupied[i * lx:(i + 1) * lx, j * ty:(j + 1) * ty, k * tz:(k + 1) * tz] = True
     assert torch.equal(halo.core_scatter(occupied.to(torch.int8), geom).bool() | ~c.solvable, torch.ones_like(c.solvable))
@@ -103,7 +114,7 @@ def test_active_tiles_on_ragged_shapes_match_brute_force(shape):
     tiles = fused_smoother.level_tiles(cells, fused_smoother.band_cells(band))
     assert tiles.core == fused_smoother.CHUNK_TILE
     _assert_tiles(tiles, cells)
-    np.testing.assert_array_equal(tiles.band.numpy(), np.flatnonzero(band.numpy()))
+    np.testing.assert_array_equal(fused_smoother.trimmed(tiles)[2].numpy(), np.flatnonzero(band.numpy()))
 
 
 def _kernel_cells(tiles, color):
@@ -116,7 +127,7 @@ def _kernel_cells(tiles, color):
     zs = tzs - 1 if color >= 0 else tzs
     n = np.arange((1 << (lxs + tys + tzs)) >> int(color >= 0))
     out = []
-    for tile in tiles.active.tolist():
+    for tile in fused_smoother.trimmed(tiles)[0].tolist():
         x0, y0, z0 = tile // (gy * gz) << lxs, tile // gz % gy << tys, tile % gz << tzs
         i = x0 + (n >> (tys + zs))
         j = y0 + ((n >> zs) & ((1 << tys) - 1))
@@ -241,7 +252,8 @@ def test_plain_output_is_zero_outside_the_active_tiles(sine32, variant):
     tcfg = SolverConfig(solve_dtype=torch.float32)
     tiles = fused_smoother.level_tiles(ct.solvable, fused_smoother.band_cells(ct.band))
     grid = fused_smoother.tile_grid(ct.shape, tiles.core)
-    assert 0 < tiles.active.numel() < grid[0] * grid[1] * grid[2]
+    n_active = int(tiles.counts[0])
+    assert 0 < n_active < grid[0] * grid[1] * grid[2]
     xt = None if kw.get("x_is_zero") else torch.from_numpy(x)
     got = fused_smoother.smooth_level_torch(xt, torch.from_numpy(b), ct, tcfg, **kw)
     ref = pallas_smoother.smooth_level_pallas(
@@ -253,7 +265,7 @@ def test_plain_output_is_zero_outside_the_active_tiles(sine32, variant):
     lx, ty, tz = tiles.core
     gy, gz = grid[1:]
     dead = torch.ones(ct.shape, dtype=torch.bool)
-    for t in tiles.active.tolist():
+    for t in tiles.active[:n_active].tolist():
         i, j, k = t // (gy * gz), t // gz % gy, t % gz
         dead[i * lx:(i + 1) * lx, j * ty:(j + 1) * ty, k * tz:(k + 1) * tz] = False
     assert dead.any()
