@@ -103,7 +103,8 @@ Phases (any failure exits non-zero and prints no result line):
      partitioned build and one projection each (setup and project seconds,
      peak memory, exchanges, box moves, staged bytes per rank), held to
      1e-5, the single process's iterations +-1, its pressure within 1e-3
-     and its DOF count.
+     and its DOF count; [11f] run() at 512^3 through the program cache
+     and with it off (phase 16 says what it checks).
  12. the transfers (config.transfer_mode; every earlier phase runs "auto",
      which is the matrix form on the card): [12a] each transfer at each
      level of the bench hierarchy in both forms, timed (CUDA events over
@@ -167,6 +168,30 @@ Phases (any failure exits non-zero and prints no result line):
      [15c] against run() (iterations +-1, pressure 1e-3); [15d] seconds
      per frame graph and eager in turns, and a chunk's launches alone (CUDA
      events, host issue time); [15e] advection's device ms.
+ 16. setup, solve and projection as programs captured once per key and
+     replayed (solver/graph.py PROGRAMS; every phase but 14 and 15, which
+     measure the per-solve loop graph and the frame graph with the cache
+     off, ran through it) at
+     the bench configuration, against the cache off (the setup eager, each
+     solve's CG loop captured anew): [16a] run() for 8 frames with the
+     sticky window in turns (on, off, off, on): captures per window key and
+     replays, a second run capturing nothing, iterations equal and every
+     frame's fields bit-equal, host syncs per frame, seconds per frame by
+     stage, the programs' copies in and out (bytes, CUDA-event ms); [16b]
+     mgpcg.solve 5 times on one problem at 64^3 and n^3: one capture, x
+     bit-equal across the repeats and to the cache off, wall and CUDA-event
+     ms per solve; [16c] setup_fusion "fused" against "per-level" at n^3
+     (bit-equal setups, setup seconds, graphs per setup program, pools:
+     per-level's one pool at most 1.25x fused's), and at 448^3 what
+     "auto" picks and that the build completes, with either granularity,
+     then the setup and projection again cached and off in turns: no
+     capture (each program replays or is not kept, Programs.get) and the
+     cached pair within 10% of the off pair; [16d] a drop moved inside a
+     kept window: no new capture, setup and projection bit-equal to a
+     fresh build with the cache off; and [11f] (in phase 11, where the
+     process holds least) run() at 512^3 for 3 frames, cached and off in
+     turns: no capture in the last cached run, frames bit-equal, the
+     cached run within 10% of the off run.
 Every kernel's entry in the kernels JSON has its launches on its path (and
 on phase 10's blocks, `launches_test_node`, and per rank of [11b],
 `launches_distributed`), its
@@ -186,6 +211,7 @@ import argparse
 import collections
 import contextlib
 import dataclasses
+import gc
 import json
 import re
 import shutil
@@ -757,7 +783,8 @@ def eager_cg_loop():
     the captured graph (`mgpcg.loop_runner`'s rule), and run_fused's frames
     run eagerly (`graph.EmulatedFrame`, the host testing `running` after
     every iteration) where each would be one captured graph
-    (`simulate.frame_runner`'s rule)."""
+    (`simulate.frame_runner`'s rule), and no call runs as a cached program
+    (`graph.programs_off`)."""
     from geometricmultigridpressuresolver_tpu_torch.models import simulate
     from geometricmultigridpressuresolver_tpu_torch.solver import graph, mgpcg
 
@@ -765,7 +792,8 @@ def eager_cg_loop():
     mgpcg.loop_runner = lambda stages, rhs: None
     simulate.frame_runner = lambda device: graph.EmulatedFrame
     try:
-        yield
+        with graph.programs_off():
+            yield
     finally:
         mgpcg.loop_runner, simulate.frame_runner = saved
 
@@ -877,7 +905,7 @@ def main(argv=None) -> int:
     from geometricmultigridpressuresolver_tpu_torch.models import assembled, free_surface, sdf, simulate
     from geometricmultigridpressuresolver_tpu_torch.ops import _cuda, blas, fused_cg, fused_smoother, stencil
     from geometricmultigridpressuresolver_tpu_torch.parallel import fused_sharded, halo
-    from geometricmultigridpressuresolver_tpu_torch.solver import mg, mgpcg
+    from geometricmultigridpressuresolver_tpu_torch.solver import graph, mg, mgpcg
     from geometricmultigridpressuresolver_tpu_torch.utils import profiling
 
     torch.backends.cuda.matmul.allow_tf32 = False  # the coarse matmul in full fp32
@@ -968,7 +996,18 @@ def main(argv=None) -> int:
     print(f"[3] recomputed relative residual: {float(result.residual_rel_l2):.3e} in fp32, {rel64:.3e} in fp64 "
           f"from the same fp32 solution (the recurrence: {result.cg.relative_residual:.3e})")
     peak3 = torch.cuda.max_memory_allocated() / 2**30
-    print(f"[3] peak device memory {peak3:.2f} GiB")
+    # The same build and projection with the program cache off (the setup
+    # eager, the CG loop captured per solve: no pools or copies): [11b] holds each rank's build to half of
+    # this single-process peak, the scene's fields counted as above.
+    with graph.programs_off():
+        torch.cuda.synchronize()
+        held3 = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        free_surface.project(free_surface.build_setup(liquid_phi, weights, config=config), velocity, config=config)
+        torch.cuda.synchronize()
+        peak3_off = (torch.cuda.max_memory_allocated() - held3 + nbytes(liquid_phi, *velocity, *weights)) / 2**30
+    print(f"[3] peak device memory {peak3:.2f} GiB (the program cache's pools and copies included); the same "
+          f"build and projection with the cache off {peak3_off:.2f} GiB")
     require(result.cg.converged and result.cg.relative_residual <= 1e-5, "did not converge to 1e-5")
     require(tuple(result.pressure.shape) == (n, n, n), "pressure shape")
     require(all(tuple(v.shape) == tuple(u.shape) for v, u in zip(result.velocity, velocity)),
@@ -1325,26 +1364,29 @@ def main(argv=None) -> int:
 
     # One warm solve under torch.profiler: device time by kernel name, and
     # the device's busy share against the profiled and the best unprofiled
-    # wall time.
+    # wall time.  With the program cache off: the profile reads the solve
+    # whose CG loop is captured per solve (phase 16 times
+    # the cached whole-solve program).
     from torch.autograd import DeviceType
 
-    mgpcg.solve(setup.problem, rhs, config=config)
-    torch.cuda.synchronize()
-    trace_dir = tempfile.mkdtemp(prefix="chip_smoke_trace_")
-    with profiling.trace(trace_dir) as prof:
-        t0 = time.perf_counter()
+    with graph.programs_off():
         mgpcg.solve(setup.problem, rhs, config=config)
         torch.cuda.synchronize()
-        wall_prof = time.perf_counter() - t0
-    trace_bytes = Path(trace_dir, "trace.json").stat().st_size
-    print(f"[5] utils.profiling.trace wrote a Chrome trace of {trace_bytes:,} bytes")
-    # The same solve under a second profiler session of this process, with
-    # the launch counters beside it: does the profiler name the kernels
-    # inside the CUDA graph's IF bodies in a later session too?
-    reset_counts()
-    with profiling.trace(trace_dir) as prof2:
-        mgpcg.solve(setup.problem, rhs, config=config)
-        torch.cuda.synchronize()
+        trace_dir = tempfile.mkdtemp(prefix="chip_smoke_trace_")
+        with profiling.trace(trace_dir) as prof:
+            t0 = time.perf_counter()
+            mgpcg.solve(setup.problem, rhs, config=config)
+            torch.cuda.synchronize()
+            wall_prof = time.perf_counter() - t0
+        trace_bytes = Path(trace_dir, "trace.json").stat().st_size
+        print(f"[5] utils.profiling.trace wrote a Chrome trace of {trace_bytes:,} bytes")
+        # The same solve under a second profiler session of this process, with
+        # the launch counters beside it: does the profiler name the kernels
+        # inside the CUDA graph's IF bodies in a later session too?
+        reset_counts()
+        with profiling.trace(trace_dir) as prof2:
+            mgpcg.solve(setup.problem, rhs, config=config)
+            torch.cuda.synchronize()
     shutil.rmtree(trace_dir)
     events2 = prof2.key_averages()
     print(f"[5] the same solve in a second profiler session: port kernels by name {port_kernels(events2)}, device "
@@ -1775,9 +1817,10 @@ def main(argv=None) -> int:
 
     # Seconds per frame, the two paths in turns, twice; each call ends on a
     # device sync.
-    per_path, runs9 = {"run()": [], "run_fused": []}, []
+    per_path, runs9, why9 = {"run()": [], "run_fused": []}, [], []
     for _ in range(2):
         for tag in per_path:
+            graph.STATS.reset()
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             if tag == "run()":
@@ -1786,9 +1829,15 @@ def main(argv=None) -> int:
                 simulate.run_fused(phi0, vel0, weights, num_frames=frames_n, config=sim_cfg, chunk=frames_n)
             torch.cuda.synchronize()
             per_path[tag].append((time.perf_counter() - t0) / frames_n)
+            st = graph.STATS
+            why9.append(f"{tag} program captures {dict(st.program_captures)} in "
+                        f"{sum(st.program_capture_seconds.values()):.3f} s, frame captures {st.frame_captures} in "
+                        f"{st.frame_capture_seconds + st.frame_instantiate_seconds:.3f} s, CG-loop captures "
+                        f"{st.captures}, cache releases {st.cache_releases}")
     for tag, ts in per_path.items():
         print(f"[9] {tag}: {min(ts):.4f} s per frame at {n}^3, best of 2 in turns "
               f"(each: {', '.join(f'{t:.4f}' for t in ts)}) [{card}]")
+    print(f"[9] by turn: {'; '.join(why9)}")
     # Host syncs per frame of each path.
     sites9 = {}
     for tag, fn in (("run()", lambda: simulate.run(phi0, vel0, weights, num_frames=frames_n, config=sim_cfg)),
@@ -2098,6 +2147,7 @@ def main(argv=None) -> int:
 
     print(f"[11] card: {card_line()}")
     t11 = time.perf_counter()
+    graph.PROGRAMS.clear()  # the ranks share the card with this process
     torch.cuda.empty_cache()
     dryrun_job = "geometricmultigridpressuresolver_tpu_torch.parallel.dryrun"
     # [11a] NCCL, a world of one rank: the 64^3 splash in the bench
@@ -2139,7 +2189,8 @@ def main(argv=None) -> int:
               f"{r['local_dofs']:,} local DOFs, {r['iterations']} iterations, relative residual "
               f"{r['relative_residual']:.3e} (recomputed {r['recomputed_residual']:.3e}); setup {r['setup_s']:.2f} s, "
               f"project {r['project_s']:.2f} s; peak device memory: build {r['build_peak_gib']:.3f} GiB, "
-              f"projection {r['project_peak_gib']:.3f} GiB (phase 3's single process {peak3:.3f} GiB); "
+              f"projection {r['project_peak_gib']:.3f} GiB (phase 3's single process {peak3_off:.3f} GiB with the "
+              f"program cache off, {peak3:.3f} GiB with it); "
               f"{len(want) - len(differ)}/{len(want)} fields of the setup bit-identical to phase 3's cut (sha256); "
               f"launches {r['launches']}, {r['exchanges']} halo exchanges (exact), {st['redistributes']} box moves "
               f"{st['redistribute_s'] * 1e3:.1f} ms, {st['bytes_staged']:,} bytes staged in the projection; "
@@ -2152,7 +2203,7 @@ def main(argv=None) -> int:
         require(not differ, f"[11b] rank {r['rank']}: setup fields differ from phase 3's cut: {differ[:8]}")
         require(r["converged"] and r["relative_residual"] <= 1e-5, f"[11b] rank {r['rank']} did not converge to 1e-5")
         require(abs(r["iterations"] - iters) <= 1, f"[11b] rank {r['rank']}: iterations differ from phase 3 by more than 1")
-        require(r["build_peak_gib"] <= 0.5 * peak3,
+        require(r["build_peak_gib"] <= 0.5 * peak3_off,
                 f"[11b] rank {r['rank']}: the build peaks at {r['build_peak_gib']:.3f} GiB, over half of phase 3's")
     require(len({r["iterations"] for r in r11b}) == 1, "[11b] the ranks' iterations differ")
     require(len({tuple(r["pressure_digest"]) for r in r11b}) == 1, "[11b] the ranks' gathered pressures differ")
@@ -2206,6 +2257,7 @@ def main(argv=None) -> int:
     # (2, 2, 1) through the partitioned build, one projection each.
     ne = 2 * n
     t0 = time.perf_counter()
+    graph.PROGRAMS.clear()  # the earlier phases' programs and their pools
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     base_e = torch.cuda.memory_allocated()
@@ -2229,6 +2281,7 @@ def main(argv=None) -> int:
           f"already held [{card}]")
     require(single_e.cg.converged and single_e.cg.relative_residual <= 1e-5, "[11e] the single process did not converge")
     del phi_e, vel_e, w_e, setup_e, single_e
+    graph.PROGRAMS.clear()  # the ranks share the card: this process's programs go too
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     r11e = dryrun.launch("chip_smoke:rank_project", 4, "gloo", "cuda", dict(n=ne), timeout=600)
@@ -2251,6 +2304,52 @@ def main(argv=None) -> int:
     require(rel_e <= 1e-3, "[11e] pressure differs from the single process by more than 1e-3")
     require(dofs_e == ndof_e, "[11e] the ranks' local DOFs do not sum to the single process's")
     del pressure_e, r11e
+
+    # [11f] run() at 512^3 ([11e]'s splash), 3 frames, through the program
+    # cache and with it off, in turns (3 each): where a program is too large
+    # for the cache to keep beside its frame partner (Programs.get), the
+    # frames run PR 13's path and capture nothing per frame; seconds per
+    # frame by stage.  Here, where the process holds least.
+    graph.PROGRAMS.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+    ne, frames_e = 2 * n, 3
+    print(f"[11f] held before: {torch.cuda.memory_allocated() / 2**30:.3f} GiB allocated, "
+          f"{torch.cuda.memory_reserved() / 2**30:.3f} GiB reserved, "
+          f"{sum(seg['total_size'] for seg in torch.cuda.memory_snapshot() if tuple(seg['segment_pool_id']) != (0, 0)) / 2**30:.3f}"
+          f" GiB of it in {len(private_pools())} private pools [{card}]")
+    phi_e, vel_e = sdf.splash_scene((ne, ne, ne), device=dev, dtype=torch.float32)
+    w_e = sdf.open_box_weights((ne, ne, ne), device=dev, dtype=torch.float32)
+    per_e, runs_e = {True: [], False: []}, {True: [], False: []}
+    for cached in (True, False, False, True, True, False):
+        graph.STATS.reset()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with contextlib.nullcontext() if cached else graph.programs_off():
+            frs = simulate.run(phi_e, vel_e, w_e, num_frames=frames_e, config=config)
+        torch.cuda.synchronize()
+        per_e[cached].append((time.perf_counter() - t0) / frames_e)
+        runs_e[cached].append([(fr.iterations, fr.pressure.cpu(), fr.seconds) for fr in frs])
+        del frs
+        if cached:
+            caps_e, hits_e = dict(graph.STATS.program_captures), dict(graph.STATS.program_hits)
+            declined_e = dict(graph.STATS.program_declined)
+    for cached in (True, False):
+        for i, frs in enumerate(runs_e[cached]):
+            stage = {k: sum(fr[2][k] for fr in frs) / frames_e for k in ("advect", "setup", "project")}
+            print(f"[11f] run() {frames_e} frames at {ne}^3, {'cached' if cached else 'off'} run {i + 1}: "
+                  f"{per_e[cached][i]:.4f} s per frame, by stage {', '.join(f'{k} {v:.4f}' for k, v in stage.items())} "
+                  f"s; iterations {[fr[0] for fr in frs]} [{card}]")
+    bits_e = all(a[0] == b[0] and torch.equal(a[1], b[1]) for frs in runs_e[True] for a, b in zip(frs, runs_e[False][0]))
+    print(f"[11f] the last cached run captures {caps_e}, replays {hits_e}, runs uncached {declined_e}; frames "
+          f"bit-equal to the cache off {bits_e}; best cached {min(per_e[True]):.4f} s against off "
+          f"{min(per_e[False]):.4f} s per frame [{card}]")
+    require(bits_e, "[11f] the cached 512^3 frames differ from the frames with the cache off")
+    require(sum(caps_e.values()) == 0, "[11f] a second 512^3 run() captured programs again")
+    require(min(per_e[True]) <= 1.10 * min(per_e[False]), "[11f] the cached 512^3 run() is slower than the cache off")
+    del phi_e, vel_e, w_e, runs_e
+    graph.PROGRAMS.clear()
+    torch.cuda.empty_cache()
     print(f"[11] phase 11 took {time.perf_counter() - t11:.1f} s [{card}]")
 
     # ---- 12. the transfers: per-axis matrix products against shifted slices ----------
@@ -2457,6 +2556,8 @@ def main(argv=None) -> int:
     # [12d] The 512^3 splash ([11e]'s scene), single process, both forms in
     # turns on one setup: iterations, projection seconds, peak memory.
     ne = 2 * n
+    graph.PROGRAMS.clear()
+    torch.cuda.empty_cache()
     phi_e, vel_e = sdf.splash_scene((ne, ne, ne), device=dev, dtype=torch.float32)
     w_e = sdf.open_box_weights((ne, ne, ne), device=dev, dtype=torch.float32)
     setup_e = free_surface.build_setup(phi_e, w_e, config=config)
@@ -2635,6 +2736,8 @@ def main(argv=None) -> int:
     require(res_ch.cg.converged and abs(iters - res_ch.cg.iterations) <= 1 and p_c <= 1e-3,
             "[13c] the bench projection differs between the card and host inverses")
     ne = 2 * n
+    graph.PROGRAMS.clear()
+    torch.cuda.empty_cache()
     phi_e, vel_e = sdf.splash_scene((ne, ne, ne), device=dev, dtype=torch.float32)
     w_e = sdf.open_box_weights((ne, ne, ne), device=dev, dtype=torch.float32)
     torch.cuda.synchronize()
@@ -2675,8 +2778,12 @@ def main(argv=None) -> int:
     print(f"[13] phase 13 took {time.perf_counter() - t13:.1f} s [{card}]")
 
     # ---- 14. the CG loop as a captured CUDA graph against the eager loop -----------------
-    from geometricmultigridpressuresolver_tpu_torch.solver import graph
-
+    # Phases 14 and 15 measure the per-solve capture of the CG loop and
+    # run_fused's frame graphs with the program cache off (phase 16 turns
+    # it back on).
+    graph.PROGRAMS.clear()
+    graph.PROGRAMS.enabled = False
+    torch.cuda.empty_cache()
     t14 = time.perf_counter()
     k14 = graph.REPLAYS
     # [14a] The bench projection through the graph and eagerly, residual
@@ -2929,7 +3036,7 @@ def main(argv=None) -> int:
           f"frame launches {g_stats.frame_launches}, chunk reads {g_stats.frame_reads}, CG-loop captures "
           f"{g_stats.captures}; capture {g_stats.frame_capture_seconds * 1e3:.1f} ms + instantiate "
           f"{g_stats.frame_instantiate_seconds * 1e3:.1f} ms; peak memory above the held, graph {g_peak:.3f} GiB, "
-          f"eager {e_peak:.3f} GiB; the frame pool {graph._POOL_BYTES.get((0, 'frame'), 0) / 2**30:.3f} GiB [{card}]")
+          f"eager {e_peak:.3f} GiB; the frame pool {graph.expected_bytes(dev, 'frame') / 2**30:.3f} GiB [{card}]")
     require(g_chunks == e_chunks == [chunk15, frames15], "[15a] a chunk did not run fused")
     require(it_g == it_e, "[15a] graph iterations differ from the eager frames'")
     require(bits15, "[15a] graph fields differ from the eager frames' bits")
@@ -3028,6 +3135,258 @@ def main(argv=None) -> int:
     print(f"[15e] advection + gravity at {n}^3 ({sim_cfg.advection}): {adv_ms:.3f} ms on the device "
           f"(CUDA events, 5 calls) [{card}]")
     print(f"[15] phase 15 took {time.perf_counter() - t15:.1f} s [{card}]")
+
+    # ---- 16. setup, solve and projection as programs captured once per key ----------------
+    # The program cache (graph.PROGRAMS) back on, emptied: phases 14-15 ran
+    # with it off.  The cached path against the cache off (the setup eager,
+    # each solve's CG loop captured anew), at the bench configuration.
+    graph.PROGRAMS.enabled = True
+    graph.PROGRAMS.clear()
+    torch.cuda.empty_cache()
+    t16 = time.perf_counter()
+    frames16 = 8
+    gib = 2.0 ** 30
+
+    def programs16(cached: bool):
+        return contextlib.nullcontext() if cached else graph.programs_off()
+
+    # [16a] run() with the sticky window, 8 frames, cached and off in turns
+    # (on, off, off, on): captures per window key and replays, host syncs
+    # per frame, seconds per frame by stage, iterations and fields.
+    keys16 = []
+
+    def on_frame16(k, fr):
+        hier_k = fr.setup.problem.hier
+        keys16.append((fr.setup.expanded_shape, max(hier_k.coarse_minv.shape[0], hier_k.coarse_chol.shape[0]),
+                       k > 0))
+
+    runs16, per16, stats16 = {True: [], False: []}, {True: [], False: []}, {True: [], False: []}
+    for cached in (True, False, False, True):
+        keys16.clear()
+        graph.STATS.reset()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with programs16(cached):
+            frs = simulate.run(phi0, vel0, weights, num_frames=frames16, config=config, on_frame=on_frame16)
+        torch.cuda.synchronize()
+        per16[cached].append((time.perf_counter() - t0) / frames16)
+        runs16[cached].append(frs)
+        stats16[cached].append((dataclasses.replace(graph.STATS), list(keys16)))
+    first_stats, keys_a = stats16[True][0]
+    shapes_a = {k[0] for k in keys_a}
+    want_caps = {"setup": len(shapes_a), "project": len(set(keys_a))}
+    caps_a = {k: first_stats.program_captures[k] for k in ("setup", "project")}
+    hits_a = {k: first_stats.program_hits[k] for k in ("setup", "project")}
+    caps_b = dict(stats16[True][1][0].program_captures)
+    hits_b = {k: stats16[True][1][0].program_hits[k] for k in ("setup", "project")}
+    print(f"[16a] run() {frames16} frames at {n}^3, cached: window keys (shape, coarse bucket, warm start) "
+          f"{sorted(set(keys_a))}; first run captures {caps_a} (one per window key: {want_caps}), replays {hits_a}, "
+          f"capture seconds { {k: round(v, 4) for k, v in first_stats.program_capture_seconds.items()} }; second "
+          f"run captures {caps_b}, replays {hits_b}; CG-loop captures cached {first_stats.captures}, off "
+          f"{stats16[False][0][0].captures} [{card}]")
+    ref_frames = runs16[False][0]
+    bits16 = all(
+        a.iterations == b.iterations and torch.equal(a.pressure, b.pressure) and torch.equal(a.liquid_phi, b.liquid_phi)
+        and all(torch.equal(u, v) for u, v in zip(a.velocity, b.velocity))
+        for frs in runs16[True] + runs16[False][1:] for a, b in zip(frs, ref_frames))
+    print(f"[16a] iterations cached {[fr.iterations for fr in runs16[True][0]]}, off "
+          f"{[fr.iterations for fr in ref_frames]}; every frame's pressure, phi and velocity bit-equal across the "
+          f"four runs: {bits16}")
+    for cached in (True, False):
+        tag = "cached" if cached else "off"
+        for i, frs in enumerate(runs16[cached]):
+            stage = {k: sum(fr.seconds[k] for fr in frs) / frames16 for k in ("advect", "setup", "project")}
+            steady = {k: sum(fr.seconds[k] for fr in frs[2:]) / (frames16 - 2) for k in ("setup", "project")}
+            print(f"[16a] {tag} run {i + 1}: {per16[cached][i]:.4f} s per frame, by stage "
+                  f"{', '.join(f'{k} {v:.4f}' for k, v in stage.items())} s; frames 3-{frames16}: "
+                  f"{', '.join(f'{k} {v:.4f}' for k, v in steady.items())} s [{card}]")
+    runs16.clear()  # 32 frames of fields, ~10 GiB
+    syncs16 = {}
+    for cached in (True, False):
+        with programs16(cached):
+            _, sites = count_syncs(lambda: simulate.run(phi0, vel0, weights, num_frames=frames16, config=config))
+        syncs16[cached] = (sum(sites.values()) / frames16, dict(sites.most_common(6)))
+    print(f"[16a] host syncs per frame: cached {syncs16[True][0]:.1f}, off {syncs16[False][0]:.1f}; by source line, "
+          f"cached {syncs16[True][1]}; off {syncs16[False][1]}")
+    copies16 = {}
+    for key16, prog in graph.PROGRAMS.entries.items():
+        if key16[0] in ("setup", "project") and key16[0] not in copies16:
+            nb_in = graph._nbytes(graph.tensors(prog.inputs))
+            nb_out = graph._nbytes(graph.tensors(prog.outputs))
+            src16 = graph._clone(prog.inputs)  # other tensors than the buffers: copy_ skips a self-copy
+            copies16[key16[0]] = (nb_in, cuda_ms(lambda p=prog, x=src16: p._copy_in(x), 5), nb_out,
+                                  cuda_ms(lambda p=prog: graph._clone(p.outputs), 5), prog.pool_bytes)
+            del src16
+    for kind16, (nb_in, ms_in, nb_out, ms_out, pool16) in copies16.items():
+        print(f"[16a] {kind16} program: copy in {nb_in / gib:.3f} GiB in {ms_in:.3f} ms, copy out {nb_out / gib:.3f} GiB "
+              f"in {ms_out:.3f} ms per call (CUDA events, 5 calls); pool and buffers {pool16 / gib:.3f} GiB [{card}]")
+    require(bits16, "[16a] the cached frames differ from the frames with the cache off")
+    require(caps_a == want_caps, "[16a] run() did not capture its setup and projection once per window key")
+    require(sum(caps_b.values()) == 0, "[16a] a second run() of the same window keys captured again")
+    require(first_stats.captures == 0, "[16a] a cached run() captured a CG loop per solve")
+
+    # [16b] mgpcg.solve 5 times on one problem at 64^3 and n^3: one capture,
+    # x bit-equal across the repeats and to the cache off; wall and CUDA-event
+    # ms per solve.
+    for m in (64, n):
+        if m == n:
+            s_m, rhs_m = setup, rhs
+        else:
+            phi_m, vel_m = sdf.splash_scene((m, m, m), device=dev, dtype=torch.float32)
+            s_m = free_surface.build_setup(phi_m, sdf.open_box_weights((m, m, m), device=dev, dtype=torch.float32),
+                                           config=config)
+            rhs_m = bench_rhs(s_m, vel_m)
+        with graph.programs_off():
+            ref_m = mgpcg.solve(s_m.problem, rhs_m, config=config)
+        graph.STATS.reset()
+        got_m, wall_m, ev_m = [], [], []
+        for _ in range(5):
+            start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            start.record()
+            got_m.append(mgpcg.solve(s_m.problem, rhs_m, config=config))
+            stop.record()
+            torch.cuda.synchronize()
+            wall_m.append((time.perf_counter() - t0) * 1e3)
+            ev_m.append(start.elapsed_time(stop))
+        caps_m, hits_m = graph.STATS.program_captures["solve"], graph.STATS.program_hits["solve"]
+        same_m = all(torch.equal(r.x, got_m[0].x) and r.iterations == got_m[0].iterations for r in got_m)
+        print(f"[16b] mgpcg.solve at {m}^3, 5 times: {caps_m} capture, {hits_m} replays; iterations "
+              f"{[r.iterations for r in got_m]} (off {ref_m.iterations}); x bit-equal across the repeats {same_m}, to "
+              f"the cache off {torch.equal(got_m[0].x, ref_m.x)}; ms per solve wall {[round(t, 3) for t in wall_m]}, "
+              f"CUDA events {[round(t, 3) for t in ev_m]} (first against the best later: {wall_m[0]:.3f} / "
+              f"{min(wall_m[1:]):.3f} wall) [{card}]")
+        require(caps_m == 1 and hits_m == 4, f"[16b] {m}^3: not one capture and 4 replays")
+        require(same_m and torch.equal(got_m[0].x, ref_m.x) and got_m[0].iterations == ref_m.iterations,
+                f"[16b] {m}^3: the cached solves differ")
+        if m != n:
+            del s_m, rhs_m
+
+    # [16c] setup_fusion "fused" against "per-level" at n^3: bit-equal setups,
+    # setup seconds (the first call captures), programs per setup, pools.
+    setups16, pools16 = {}, {}
+    for fusion in ("fused", "per-level"):
+        cfg_f = dataclasses.replace(config, setup_fusion=fusion)
+        graph.PROGRAMS.clear()
+        torch.cuda.empty_cache()
+        graph.STATS.reset()
+        secs = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            setups16[fusion] = free_surface.build_setup(liquid_phi, weights, config=cfg_f)
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+        (prog16,) = [p for k, p in graph.PROGRAMS.entries.items() if k[0] == "setup"]
+        pools16[fusion] = graph.STATS.program_pool_bytes["setup"]
+        print(f"[16c] {n}^3 setup_fusion={fusion!r}: build_setup {', '.join(f'{t:.4f}' for t in secs)} s (the first "
+              f"captures); {graph.STATS.program_captures['setup']} program per setup of {len(prog16.graphs)} graphs, "
+              f"replayed {graph.STATS.program_hits['setup']} times by the later two; pool and buffers "
+              f"{pools16[fusion] / gib:.3f} GiB; capture {graph.STATS.program_capture_seconds['setup']:.4f} s [{card}]")
+        del prog16
+    t_f, t_p = graph.tensors(setups16["fused"].problem), graph.tensors(setups16["per-level"].problem)
+    bits16c = len(t_f) == len(t_p) and all(torch.equal(a, b) for a, b in zip(t_f, t_p))
+    t_3 = graph.tensors(setup.problem)
+    bits16c3 = len(t_f) == len(t_3) and all(torch.equal(a, b) for a, b in zip(t_f, t_3))
+    print(f"[16c] fused and per-level setups bit-equal {bits16c}; fused and phase 3's {bits16c3}; per-level's pool "
+          f"{pools16['per-level'] / pools16['fused']:.3f}x fused's [{card}]")
+    require(bits16c and bits16c3, "[16c] the granularities' setups differ")
+    require(pools16["per-level"] <= 1.25 * pools16["fused"], "[16c] per-level holds more memory than fused")
+    del setups16
+    graph.PROGRAMS.clear()
+    torch.cuda.empty_cache()
+    m = 448
+    try:
+        phi_l, vel_l = sdf.splash_scene((m, m, m), device=dev, dtype=torch.float32)
+        w_l = sdf.open_box_weights((m, m, m), device=dev, dtype=torch.float32)
+        s_l = None
+        for fusion in ("fused", "auto"):
+            s_l = None  # the other granularity's setup goes before this build
+            graph.PROGRAMS.clear()
+            torch.cuda.empty_cache()
+            graph.STATS.reset()
+            torch.cuda.reset_peak_memory_stats()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            s_l = free_surface.build_setup(phi_l, w_l, config=dataclasses.replace(config, setup_fusion=fusion))
+            torch.cuda.synchronize()
+            cells = int(np.prod(s_l.expanded_shape))
+            picked = dataclasses.replace(config, setup_fusion=fusion).setup_fusion_resolved(s_l.expanded_shape)
+            print(f"[16c] {m}^3 setup_fusion={fusion!r}: window {s_l.expanded_shape} ({cells:,} cells, threshold "
+                  f"{SolverConfig.SETUP_FUSION_AUTO_CELLS:,}) takes {picked!r}; the build completes in "
+                  f"{time.perf_counter() - t0:.3f} s with {sum(graph.STATS.program_captures.values())} programs, "
+                  f"pools and buffers {sum(graph.STATS.program_pool_bytes.values()) / gib:.3f} GiB, peak "
+                  f"{torch.cuda.max_memory_allocated() / gib:.3f} GiB [{card}]")
+        # The frame loop's pair at this size ("auto"): the setup and the
+        # projection again, cached and with the cache off, in turns (3 each); each
+        # program either replays or is not kept (no capture per call), and
+        # the pair costs no more than with the cache off (PR 13's path).
+        free_surface.project(s_l, vel_l, config=config)
+        pair16 = {True: [], False: []}
+        for cached in (True, False, False, True, True, False):
+            graph.STATS.reset()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with programs16(cached):
+                s_l = free_surface.build_setup(phi_l, w_l, config=config)
+                r_l = free_surface.project(s_l, vel_l, config=config)
+            torch.cuda.synchronize()
+            pair16[cached].append(time.perf_counter() - t0)
+            if cached:
+                caps_l, hits_l = dict(graph.STATS.program_captures), dict(graph.STATS.program_hits)
+                declined_l = dict(graph.STATS.program_declined)
+        print(f"[16c] {m}^3 'auto' setup and projection ({r_l.cg.iterations} iterations) again, cached "
+              f"{', '.join(f'{t:.4f}' for t in pair16[True])} s, off {', '.join(f'{t:.4f}' for t in pair16[False])} s "
+              f"(in turns); the last cached pair captures {caps_l}, replays {hits_l}, runs uncached {declined_l}; the "
+              f"cache holds {len(graph.PROGRAMS)} programs, {graph.PROGRAMS.held_bytes() / gib:.3f} GiB (budget "
+              f"{graph.PROGRAMS.budget:.2f} of the card, a program kept up to half of it) [{card}]")
+        require(sum(caps_l.values()) == 0, f"[16c] {m}^3: a second setup and projection captured again")
+        require(min(pair16[True]) <= 1.10 * min(pair16[False]),
+                f"[16c] {m}^3: the cached setup and projection cost more than with the cache off")
+        del s_l, r_l, phi_l, vel_l, w_l
+    except torch.cuda.OutOfMemoryError as exc:
+        print(f"[16c] {m}^3: the allocator refused: {str(exc).splitlines()[0]} [{card}]")
+    graph.PROGRAMS.clear()
+    torch.cuda.empty_cache()
+
+    # [16d] A drop moved inside a kept window: the setup program replays (no
+    # capture) at the new origin and matches a fresh build with the cache
+    # off bit for bit; so do the projections.
+    pts16, _ = sdf.cell_centers((n, n, n), device=dev, dtype=torch.float32)
+    drop0 = sdf.sphere_sdf(pts16, (0.35, 0.45, 0.5), 0.2)
+
+    def drop16(shift: int):
+        return torch.roll(drop0, shift, dims=0)  # air rolls in: the same drop, `shift` cells along x
+
+    graph.STATS.reset()
+    s_a = free_surface.build_setup(drop16(0), weights, config=config)
+    caps_before = dict(graph.STATS.program_captures)
+    s_b = free_surface.build_setup(drop16(3), weights, config=config, reuse_from=s_a)
+    caps_after, hits_d = dict(graph.STATS.program_captures), graph.STATS.program_hits["setup"]
+    with graph.programs_off():
+        fresh = free_surface.build_setup(drop16(3), weights, config=config)
+    t_b, t_fr = graph.tensors(s_b.problem), graph.tensors(fresh.problem)
+    bits16d = len(t_b) == len(t_fr) and all(torch.equal(a, b) for a, b in zip(t_b, t_fr))
+    p_b = free_surface.project(s_b, vel0, config=config)
+    with graph.programs_off():
+        p_fr = free_surface.project(fresh, vel0, config=config)
+    p_a = free_surface.project(s_a, vel0, config=config)
+    print(f"[16d] window {s_a.expanded_shape} kept: {s_b.expanded_shape}, origin {s_a.window_start} -> "
+          f"{s_b.window_start} (fresh build {fresh.window_start}); setup captures {caps_before} then {caps_after}, "
+          f"{hits_d} replay; setup bit-equal to the fresh build {bits16d}; projection iterations {p_b.cg.iterations} "
+          f"(fresh {p_fr.cg.iterations}), pressure bit-equal {torch.equal(p_b.pressure, p_fr.pressure)}; the first "
+          f"origin's projection after it: {p_a.cg.iterations} iterations, project captures "
+          f"{graph.STATS.program_captures['project']}, replays {graph.STATS.program_hits['project']} [{card}]")
+    require(s_b.expanded_shape == s_a.expanded_shape and s_b.window_start != s_a.window_start,
+            "[16d] the drop did not move inside a kept window")
+    require(caps_after == caps_before and hits_d == 1, "[16d] the moved origin captured the setup again")
+    require(bits16d and s_b.window_start == fresh.window_start, "[16d] the replayed setup differs from a fresh build")
+    require(torch.equal(p_b.pressure, p_fr.pressure) and p_b.cg.iterations == p_fr.cg.iterations,
+            "[16d] the moved origin's projection differs from the fresh build's")
+    del s_a, s_b, fresh, p_a, p_b, p_fr, pts16, drop0
+
+    print(f"[16] phase 16 took {time.perf_counter() - t16:.1f} s [{card}]")
 
     src = "geometricmultigridpressuresolver_tpu_torch/csrc/"
     jax_src = "geometricmultigridpressuresolver_tpu/"

@@ -12,8 +12,13 @@ card and are absent on purpose (passing one raises ``TypeError``):
   * `pallas_pad_coarse`, `pallas_pad_min_cells`, `pallas_pad_max_ratio`:
     padded views that meet the TPU kernel's slab shapes; the chunk kernel
     takes any shape.
-  * `setup_fusion`: how many XLA programs the build compiles to; the
-    port's build runs eagerly.
+
+`setup_fusion` keeps the JAX package's values and threshold: how many
+device programs the setup is (one CUDA graph for the expansion, every
+level and the fine operator, or one per level).  On the card the graphs
+of one setup share one memory pool (`solver.graph.Program`), so the two
+forms hold about the same workspace, where on the TPU "per-level" holds
+less.  On the CPU the setup runs eagerly whatever its value.
 
 One default differs: `solve_dtype` is float64, the reference's all-double
 solve.  The JAX package resolves its default from ``jax_enable_x64``; torch
@@ -33,6 +38,7 @@ KERNEL_MODES = ("auto", "torch", "cuda")
 ADVECTION_SCHEMES = ("semi_lagrangian", "upwind")
 TRANSFER_MODES = ("auto", "mm", "slice")
 INTERIOR_SMOOTHERS = (None, "chebyshev")
+SETUP_FUSIONS = ("auto", "fused", "per-level")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -106,6 +112,19 @@ class SolverConfig:
         the products on a CUDA device and the slices on the CPU, as the JAX
         package takes them on the TPU and not elsewhere
         (`solver.mg.use_mm_transfers`).
+      setup_fusion: the setup's program granularity on the card.  "fused"
+        captures the window expansion, every hierarchy level and the fine
+        CG operator as ONE CUDA graph (`models.free_surface.
+        _expand_build_device`, `solver.mg.device_hierarchy`); "per-level"
+        captures the expansion and each level as graphs of their own (JAX
+        `_device_level`), replayed in order from one memory pool, so a
+        level's workspace is free for the next as it is inside the fused
+        graph; "auto" takes per-level above SETUP_FUSION_AUTO_CELLS cells
+        per device, fused below (the JAX package's threshold, so both
+        packages pick the same granularity for the same window; on the
+        card the two hold about the same memory).  The setup is captured
+        once per shape and replayed after that (`solver.graph.PROGRAMS`);
+        on the CPU it runs eagerly.
     """
 
     solve_dtype: torch.dtype = torch.float64
@@ -135,6 +154,12 @@ class SolverConfig:
     advection: str = "semi_lagrangian"
     advect_substeps: int = 4
     transfer_mode: str = "auto"
+    setup_fusion: str = "auto"
+
+    # The JAX package's bracket (config.py there): the fused setup program
+    # fit at a 95.4M-cell window and ran out of memory at 125.8M, so "auto"
+    # switches just above the side that fit.
+    SETUP_FUSION_AUTO_CELLS = 96_000_000
 
     def __post_init__(self):
         if self.kernel_mode not in KERNEL_MODES:
@@ -167,6 +192,23 @@ class SolverConfig:
             raise ValueError(
                 f"config.advection={self.advection!r}; expected one of {ADVECTION_SCHEMES}"
             )
+        if self.setup_fusion not in SETUP_FUSIONS:
+            raise ValueError(
+                f"config.setup_fusion={self.setup_fusion!r}; expected one of {SETUP_FUSIONS}"
+            )
+
+    def setup_fusion_resolved(self, expanded_shape, n_devices: int = 1) -> str:
+        """The setup granularity for a window of `expanded_shape`: the
+        knob, or under "auto" "per-level" when the window's cells per
+        device exceed SETUP_FUSION_AUTO_CELLS, else "fused" (the JAX
+        package's rule, with `n_devices` the mesh's size)."""
+        if self.setup_fusion != "auto":
+            return self.setup_fusion
+        cells = 1
+        for s in expanded_shape:
+            cells *= int(s)
+        per_device = cells // max(1, n_devices)
+        return "per-level" if per_device > self.SETUP_FUSION_AUTO_CELLS else "fused"
 
     @property
     def mg_dtype_resolved(self) -> torch.dtype:

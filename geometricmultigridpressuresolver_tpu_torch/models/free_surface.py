@@ -15,6 +15,12 @@ projected velocity out.
 `build_setup` runs steps 1-4 on `device`; `project` runs steps 5-9 on the
 device that holds the setup.  In a frame loop, `build_setup(reuse_from=
 previous_setup)` keeps the window shape sticky while the liquid fits.
+On the card step 4 with the hierarchy (`_expand_build_device`, at the
+granularity `config.setup_fusion` sets) and the whole of steps 5-9 are
+programs captured once per key and replayed after that
+(`solver.graph.PROGRAMS`): a kept window replays them whatever its
+origin, which the programs read from the device.  Their results are
+copies the caller owns.
 
 Across ranks (`mesh=` a `parallel.mesh.DistMesh`) both run partitioned
 (`parallel.sharding.partitioned_setup` / `partitioned_project`, the
@@ -43,6 +49,7 @@ from geometricmultigridpressuresolver_tpu_torch.ops import domain as domain_ops
 from geometricmultigridpressuresolver_tpu_torch.parallel import sharding
 from geometricmultigridpressuresolver_tpu_torch.parallel.mesh import DistMesh
 from geometricmultigridpressuresolver_tpu_torch.solver import cg as cg_mod
+from geometricmultigridpressuresolver_tpu_torch.solver import graph
 from geometricmultigridpressuresolver_tpu_torch.solver import mg as mg_mod
 from geometricmultigridpressuresolver_tpu_torch.solver import mgpcg
 
@@ -216,9 +223,24 @@ def base_label_fields(liquid_phi, cut_cell_weights, solid_phi, theta_clamp: floa
 
 
 def _window(arr, start, base_pads, out_shape, fill):
-    """out[j] = padded_base[start + j], padded with `fill`."""
+    """out[j] = padded_base[start + j], padded with `fill`.  `start` is
+    host integers (slices), or the origin as an int32 tensor of three on
+    the device (a gather at start + arange: a captured program reads the
+    origin from memory, as the JAX package traces its window_start)."""
     padded = domain_ops.pad(arr, base_pads, fill)
-    return padded[tuple(slice(s, s + n) for s, n in zip(start, out_shape))].contiguous()
+    if not isinstance(start, torch.Tensor):
+        return padded[tuple(slice(s, s + n) for s, n in zip(start, out_shape))].contiguous()
+    i, j, k = (start[a].long() + torch.arange(n, device=padded.device) for a, n in enumerate(out_shape))
+    return padded[i[:, None, None], j[None, :, None], k[None, None, :]]
+
+
+def device_origin(start, device) -> torch.Tensor:
+    """The window origin `start` (host integers) as an int32 tensor on
+    `device`, written by fills (no host copy, no sync)."""
+    origin = torch.empty(3, dtype=torch.int32, device=device)
+    for a, s in enumerate(start):
+        origin[a].fill_(int(s))
+    return origin
 
 
 def _expand_window_fields(mg_labels, mg_weights, start, base_pads, expanded_shape):
@@ -330,19 +352,15 @@ def build_setup(
     )
     base_shape = tuple(liquid_phi.shape)
     geom = window_geometry(projections, non_ext_count, base_shape, config, reuse_from)
-    labels, exp_weights = _expand_window_fields(
-        trimmed if config.compact_domain else mg_labels, mg_weights, geom.start, geom.base_pads,
-        geom.expanded_shape,
+    labels, exp_weights, levels, flags, label_levels, fine = _expand_build_device(
+        trimmed if config.compact_domain else mg_labels, mg_weights, geom.start,
+        geom.base_pads, geom.expanded_shape, geom.target_levels(config), config,
     )
     if validate:
         assert domain_ops.check_boundary_cells(labels, exp_weights)
         assert domain_ops.check_exterior_shell(labels)
 
-    mg_dtype, fine_dtype, fine_full = mgpcg.fine_plan(config)
-    levels, flags, label_levels, fine = mg_mod._build_levels(
-        labels, exp_weights, geom.target_levels(config), config.boundary_width, mg_dtype,
-        config.mg_ew_dtype, fine_dtype, fine_full,
-    )
+    fine_full = mgpcg.fine_plan(config)[2]
     hier = mg_mod._finish_hierarchy(
         levels, flags, label_levels, config, validate=validate, host_fw=exp_weights
     )
@@ -357,6 +375,50 @@ def build_setup(
         padding=geom.padding,
         mg_levels=geom.mg_levels,
     )
+
+
+def _expand_build_device(window_labels, mg_weights, window_start, base_pads, expanded_shape,
+                         target_levels: int, config: SolverConfig):
+    """Step 4 and the hierarchy below it: the window at the origin
+    `window_start` (host integers) cut out of the padded base labels and
+    weights and relabeled (`_expand_window_fields`), every level and the
+    fine CG operator (`mg.hierarchy_levels`): (labels, exp_weights,
+    levels, flags, label_levels, fine), the JAX package's
+    `_expand_build_device`.
+
+    On the card all of it is ONE program (`graph.call`), captured once per
+    shape, dtypes, depth and granularity and replayed after that, so a
+    liquid that moves inside a kept window replays it: the origin is an
+    input, an int32 tensor on the card (`device_origin`, JAX's traced
+    window_start), not part of the key.  At ``setup_fusion="fused"`` the program
+    is one graph; at "per-level" the expansion is one graph and each
+    level another (`mg.device_hierarchy`).  The caller gets copies of the
+    outputs.  On the CPU it runs eagerly, both granularities with the
+    same bits."""
+    _, fine_dtype, fine_full = mgpcg.fine_plan(config)
+    base_pads, expanded_shape = tuple(base_pads), tuple(expanded_shape)
+    per_level = config.setup_fusion_resolved(expanded_shape) == "per-level"
+
+    def build(lab, w, start, split):
+        labels, exp_weights = _expand_window_fields(lab, w, start, base_pads, expanded_shape)
+        if per_level:
+            split()
+        return (labels, exp_weights) + mg_mod.hierarchy_levels(
+            labels, tuple(exp_weights), target_levels, config, fine_dtype, fine_full, per_level, split,
+        )
+
+    dev = window_labels.device
+
+    def eager():
+        return build(window_labels, tuple(mg_weights), window_start, graph.no_split)
+
+    if not graph.programs_on(dev):
+        return eager()
+    key = (base_pads, expanded_shape, target_levels, config.mg_dtype_resolved, config.boundary_width,
+           config.mg_ew_dtype, fine_dtype, fine_full, per_level)
+    inputs = (window_labels, tuple(mg_weights), device_origin(window_start, dev))
+    cells = expanded_shape[0] * expanded_shape[1] * expanded_shape[2]  # the program grows with the window
+    return graph.call("setup", key, build, inputs, dev, uncached=eager, size=cells)
 
 
 class WindowGeometry(NamedTuple):
@@ -437,7 +499,17 @@ def embed_window(base, window_start, base_pads, expanded_shape) -> torch.Tensor:
 
 
 def extract_window(expanded, window_start, base_pads, base_shape) -> torch.Tensor:
-    """Scatter an expanded-domain field back onto the base grid."""
+    """Scatter an expanded-domain field back onto the base grid (zeros
+    where the window does not reach).  `window_start` as in `_window`."""
+    if isinstance(window_start, torch.Tensor):
+        idx, inside = [], []
+        for a, (b, (plo, _)) in enumerate(zip(base_shape, base_pads)):
+            at = torch.arange(b, device=expanded.device) + plo - window_start[a].long()
+            inside.append((at >= 0) & (at < expanded.shape[a]))
+            idx.append(at.clamp(0, expanded.shape[a] - 1))
+        vals = expanded[idx[0][:, None, None], idx[1][None, :, None], idx[2][None, None, :]]
+        mask = inside[0][:, None, None] & inside[1][None, :, None] & inside[2][None, None, :]
+        return torch.where(mask, vals, torch.zeros_like(vals))
     padded_shape = tuple(b + plo + phi for b, (plo, phi) in zip(base_shape, base_pads))
     buf = expanded.new_zeros(padded_shape)
     buf[tuple(slice(s, s + n) for s, n in zip(window_start, expanded.shape))] = expanded
@@ -533,7 +605,18 @@ def project(
     `old_pressure` are whole grids or the rank's blocks of them; the
     result's `pressure` and `velocity` are the rank's blocks of the base
     grid, `cg.x` its block of the window, and the audit scalars and the
-    recomputed residual norms are over all ranks."""
+    recomputed residual norms are over all ranks.
+
+    On the card in one process (`graph.programs_on`; `mesh` None or a
+    block mesh) the whole projection is one program, the JAX package's
+    `_project_impl` on `_PROJECT_STATICS`: captured once per key -- the
+    configuration, the mesh, the window's shape and base padding, and the
+    shapes and dtypes of the setup and the fields (the coarse bucket
+    among them) -- and replayed by every later call, whatever the
+    setup's values and window origin.  The setup and the fields are
+    copied into the program's buffers and the result out of its own, so
+    the caller holds the result as it would any other; its CG scalars
+    come to the host in one read."""
     if config is None:
         config = SolverConfig()
     if isinstance(mesh, DistMesh):
@@ -546,7 +629,37 @@ def project(
     velocity = tuple(torch.as_tensor(v, dtype=sd, device=dev) for v in velocity)
     if solid_velocity is not None:
         solid_velocity = tuple(torch.as_tensor(v, dtype=sd, device=dev) for v in solid_velocity)
+    old = None
+    if config.use_old_pressure and old_pressure is not None:
+        old = torch.as_tensor(old_pressure, dtype=sd, device=dev)
+    if device_loop is None and graph.programs_on(dev):
+        return _project_program(setup, velocity, solid_velocity, old, config, mesh)
+    return _project_impl(setup, velocity, solid_velocity, old, config, mesh, device_loop)
 
+
+def _project_program(setup: ProjectionSetup, velocity, solid_velocity, old, config: SolverConfig, mesh):
+    """`project` as the cached program of its key (see `project`)."""
+    dev = setup.liquid_phi.device
+    fields = (setup.problem, setup.material, setup.weights, setup.liquid_phi,
+              device_origin(setup.window_start, dev), velocity, solid_velocity, old)
+
+    def fn(problem, material, weights, liquid_phi, origin, velocity, solid_velocity, old, device_loop):
+        held = setup._replace(problem=problem, material=material, weights=weights, liquid_phi=liquid_phi,
+                              window_start=origin)
+        return _project_impl(held, velocity, solid_velocity, old, config, mesh, device_loop)
+
+    key = (config, mesh, setup.base_pads, setup.expanded_shape, setup.base_shape)
+    result = graph.call("project", key, fn, fields, dev, prepare=mgpcg.capture_prepare(setup.problem, config),
+                        loop=True,
+                        uncached=lambda: _project_impl(setup, velocity, solid_velocity, old, config, mesh))
+    return result._replace(cg=mgpcg.host_result(result.cg))
+
+
+def _project_impl(setup: ProjectionSetup, velocity, solid_velocity, old, config: SolverConfig, mesh=None,
+                  device_loop=None) -> ProjectionResult:
+    """Steps 5-9 of `project` on fields already on the setup's device
+    (`old`: the warm start, or None)."""
+    sd = config.solve_dtype
     liquid_mask = setup.liquid_mask
     valid_faces, grad_scale = face_projection_fields(
         setup.material, setup.liquid_phi, setup.weights, config.theta_clamp, sd
@@ -555,8 +668,7 @@ def project(
     rhs = embed_window(rhs_base, setup.window_start, setup.base_pads, setup.expanded_shape)
 
     x0 = None
-    if config.use_old_pressure and old_pressure is not None:
-        old = torch.as_tensor(old_pressure, dtype=sd, device=dev)
+    if old is not None:
         warm = torch.where(liquid_mask, old, torch.zeros_like(old))
         x0 = embed_window(warm, setup.window_start, setup.base_pads, setup.expanded_shape)
 

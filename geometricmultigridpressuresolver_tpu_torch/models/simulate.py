@@ -11,7 +11,10 @@ package computes it outside Pallas.
 
   * run / step: the per-frame loop, with checkpoints every N frames
     (`save_state` / `load_state`, the native tiled format of `io`) and
-    resume (`start_frame`, `old_pressure`);
+    resume (`start_frame`, `old_pressure`); on the card the setup and the
+    projection are programs captured once per window key and replayed
+    frame after frame (`solver.graph.PROGRAMS`), as the JAX package
+    reuses its compiled programs while the window is kept;
   * run_fused: chunks of frames on frozen geometry (window, level count,
     coarse bucket), the hierarchy and the coarse direct solve rebuilt on
     the device each frame with no host decision and no host read -- on
@@ -37,7 +40,6 @@ from geometricmultigridpressuresolver_tpu_torch import device as device_mod
 from geometricmultigridpressuresolver_tpu_torch import io as gmg_io
 from geometricmultigridpressuresolver_tpu_torch.config import SolverConfig
 from geometricmultigridpressuresolver_tpu_torch.models import free_surface
-from geometricmultigridpressuresolver_tpu_torch.ops import transfer
 from geometricmultigridpressuresolver_tpu_torch.solver import graph, mgpcg
 from geometricmultigridpressuresolver_tpu_torch.solver import mg as mg_mod
 
@@ -224,7 +226,10 @@ def step(
     card).
 
     `reuse_setup` (the previous frame's setup) keeps the window shape
-    sticky across frames.  The stage times in `seconds` end on a device
+    sticky across frames, so on the card the frame replays the setup and
+    projection programs of that window (`build_setup`, `project`); the
+    setup it returns is a value of its own, which the next frame's replay
+    does not overwrite.  The stage times in `seconds` end on a device
     sync; the setup and the solve sync the host anyway.
     """
     if config is None:
@@ -491,15 +496,7 @@ def freeze_geometry(phi, weights, solid_phi, config: SolverConfig):
         setup.base_pads, setup.expanded_shape, setup.window_start, hier.num_levels,
         max(256, nd_pad + 256), setup.padding,
     )
-    shapes = mg_mod.level_shapes(hier)
-    dtypes = {hier.levels[0].diag.dtype, mg_mod.field_dtype(hier, config)}
-    dev = phi.device
-
-    def prepare():
-        if mg_mod.use_mm_transfers(config, dev):
-            transfer.prepare(shapes, dev, dtypes)
-
-    return geom, prepare
+    return geom, mgpcg.capture_prepare(setup.problem, config)
 
 
 def run_fused(

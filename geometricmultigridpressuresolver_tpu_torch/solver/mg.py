@@ -1,5 +1,8 @@
 """Geometric multigrid V-cycle engine (PyTorch port of ``solver/mg.py``).
 
+  * device_hierarchy: every level's coefficients at the program
+    granularity `config.setup_fusion` sets (one captured program, or one
+    per level, on the card; eagerly on the CPU).
   * build_hierarchy: label coarsening with the JAX package's lane alignment,
     per-level coefficients, capping at the first coarse level without DOFs,
     and the coarsest level's direct solver (a dense inverse, or a Cholesky
@@ -164,6 +167,84 @@ def _build_levels(
     return tuple(levels), tuple(flags), tuple(label_levels), fine
 
 
+def _device_level(labels, face_weights, boundary_width: int, dtype, ew_dtype=None, coarsen: bool = True):
+    """One level's coefficients, and with `coarsen` the next coarser labels
+    and whether they hold a DOF: the program of one level at
+    ``setup_fusion="per-level"`` (JAX `_device_level`)."""
+    coeffs = _level_coeffs(labels, face_weights, boundary_width, dtype, ew_dtype)
+    if not coarsen:
+        return coeffs
+    coarse = domain_ops.coarsen_labels(labels, lane_align=True)
+    return coeffs, coarse, is_solvable(coarse).any()
+
+
+def _levels_per_level(labels, face_weights, target_levels: int, boundary_width: int, dtype, ew_dtype=None,
+                      fine_dtype=None, fine_full: bool = False, split=None):
+    """`_build_levels` as JAX's per-level dispatch (`device_hierarchy`'s
+    loop over `_device_level`), the same bits: `split()` between one
+    level's program and the next, and before the fine operator's."""
+    cur = labels
+    label_levels = [cur]
+    levels, flags = [], []
+    for i in range(target_levels):
+        if i:
+            split()
+        fw_i = face_weights if i == 0 else None
+        can_coarsen = i + 1 < target_levels and all(s % 2 == 0 for s in cur.shape)
+        if not can_coarsen:
+            levels.append(_device_level(cur, fw_i, boundary_width, dtype, ew_dtype, coarsen=False))
+            break
+        coeffs, coarse, has_dofs = _device_level(cur, fw_i, boundary_width, dtype, ew_dtype)
+        levels.append(coeffs)
+        flags.append(has_dofs)
+        cur = coarse
+        label_levels.append(cur)
+    fine = None
+    if fine_dtype is not None:
+        split()
+        fc = _device_level(labels, face_weights, boundary_width, fine_dtype, coarsen=False)
+        fine = fc if fine_full else (fc.ew0, fc.ew1, fc.ew2)
+    return tuple(levels), tuple(flags), tuple(label_levels), fine
+
+
+def hierarchy_levels(labels, face_weights, target_levels: int, config: SolverConfig, fine_dtype=None,
+                     fine_full: bool = False, per_level: bool = False, split=None):
+    """(levels, flags, label_levels, fine) of `labels`: `_build_levels`, or
+    with `per_level` its per-level form, whose stages `split` cuts."""
+    dtype, bw, ew = config.mg_dtype_resolved, config.boundary_width, config.mg_ew_dtype
+    if per_level:
+        return _levels_per_level(labels, face_weights, target_levels, bw, dtype, ew, fine_dtype, fine_full, split)
+    return _build_levels(labels, face_weights, target_levels, bw, dtype, ew, fine_dtype, fine_full)
+
+
+def device_hierarchy(labels, face_weights, target_levels: int, config: SolverConfig,
+                     fine_dtype=None, fine_full: bool = False, mesh=None):
+    """`_build_levels` at the configured program granularity (JAX
+    `device_hierarchy`): the same (levels, flags, label_levels, fine).
+
+    On the card (`graph.programs_on`) it is one program, captured once
+    per shape and key and replayed after that, the caller getting copies
+    of its outputs (`graph.call`): "fused" one graph for every level and
+    the fine operator, "per-level" one graph per level (JAX
+    `_device_level`) and one for the fine operator, all in the program's
+    one memory pool.  On the CPU, or across ranks, both run eagerly; the
+    two granularities give the same bits.  The granularity comes from
+    `config.setup_fusion_resolved(labels.shape, mesh.size)`."""
+    from geometricmultigridpressuresolver_tpu_torch.solver import graph
+
+    n_dev = 1 if mesh is None else mesh.size
+    per_level = config.setup_fusion_resolved(labels.shape, n_dev) == "per-level"
+
+    def build(lab, fw, split):
+        return hierarchy_levels(lab, fw, target_levels, config, fine_dtype, fine_full, per_level, split)
+
+    if isinstance(mesh, DistMesh) or not graph.programs_on(labels.device):
+        return build(labels, face_weights, graph.no_split)
+    key = (target_levels, config.mg_dtype_resolved, config.boundary_width, config.mg_ew_dtype, fine_dtype,
+           fine_full, per_level)
+    return graph.call("hierarchy", key, build, (labels, face_weights), labels.device)
+
+
 def candidate_shapes(shape, target_levels: int) -> list[tuple[int, int, int]]:
     """The shapes `_build_levels` gives its levels before the capping: each
     coarse level half the one above (`coarsen_labels(lane_align=True)`'s z
@@ -186,7 +267,7 @@ def build_hierarchy(
 ) -> MGHierarchy:
     """Hierarchy from expanded and relabeled finest labels (+ finest weights),
     built on `device` (default: the labels' device if they are a tensor,
-    else the card)."""
+    else the card) at the configured granularity (`device_hierarchy`)."""
     if config is None:
         config = SolverConfig()
     dtype = config.mg_dtype_resolved
@@ -198,9 +279,7 @@ def build_hierarchy(
     fw = None if face_weights is None else tuple(
         torch.as_tensor(w, dtype=dtype, device=dev) for w in face_weights
     )
-    levels, flags, label_levels, _ = _build_levels(
-        cur, fw, target_levels, config.boundary_width, dtype, config.mg_ew_dtype
-    )
+    levels, flags, label_levels, _ = device_hierarchy(cur, fw, target_levels, config)
     return _finish_hierarchy(levels, flags, label_levels, config, validate=validate, host_fw=fw)
 
 

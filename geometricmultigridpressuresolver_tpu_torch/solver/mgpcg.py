@@ -35,7 +35,7 @@ import torch
 
 from geometricmultigridpressuresolver_tpu_torch import device as device_mod
 from geometricmultigridpressuresolver_tpu_torch.config import SolverConfig
-from geometricmultigridpressuresolver_tpu_torch.ops import fused_cg, fused_smoother, stencil
+from geometricmultigridpressuresolver_tpu_torch.ops import fused_cg, fused_smoother, stencil, transfer
 from geometricmultigridpressuresolver_tpu_torch.parallel import distributed, fused_sharded, sharding
 from geometricmultigridpressuresolver_tpu_torch.parallel.mesh import DistMesh
 from geometricmultigridpressuresolver_tpu_torch.solver import cg as cg_mod
@@ -79,7 +79,7 @@ def build_problem(
     `shard_problem` of the whole build)."""
     if config is None:
         config = SolverConfig()
-    dtype, fine_dtype, fine_full = fine_plan(config)
+    _, fine_dtype, fine_full = fine_plan(config)
     target_levels = mg_levels
     if config.max_mg_levels is not None:
         target_levels = min(target_levels, config.max_mg_levels)
@@ -94,9 +94,8 @@ def build_problem(
     fw = None if face_weights is None else tuple(
         torch.as_tensor(w, dtype=config.solve_dtype, device=dev) for w in face_weights
     )
-    levels, flags, label_levels, fine = mg_mod._build_levels(
-        lab, fw, target_levels, config.boundary_width, dtype, config.mg_ew_dtype,
-        fine_dtype, fine_full,
+    levels, flags, label_levels, fine = mg_mod.device_hierarchy(
+        lab, fw, target_levels, config, fine_dtype, fine_full, mesh=mesh,
     )
     hier = mg_mod._finish_hierarchy(levels, flags, label_levels, config, validate=validate, host_fw=fw)
     return _finish_problem(hier, fine, fine_full)
@@ -284,11 +283,64 @@ def solve(
     share of the problem (`build_problem(mesh=)`); `rhs` and `x0` are the
     whole fine grid or this rank's block of it; the result's x is the
     rank's block (`distributed.gather_blocks` assembles the grid).  Every
-    rank passes an `interrupt_check` or none does; rank 0's answer counts."""
+    rank passes an `interrupt_check` or none does; rank 0's answer counts.
+
+    On the card in one process without an `interrupt_check`
+    (`graph.programs_on`) the whole solve is one program, the JAX
+    package's `_solve` on `_SOLVE_STATICS`: its operators, the first
+    iteration, the loop as a WHILE node on the device's exit test and the
+    result, captured once per configuration, mesh and the shapes and
+    dtypes of the problem and the fields, and replayed by every later
+    solve with that key, of this problem or another.  The problem, `rhs`
+    and `x0` are copied into the program's buffers and the result out of
+    them; the scalars come to the host in one read.  With an
+    `interrupt_check` the loop is captured per solve and launched once
+    per iteration (`graph.run`), as the JAX package compiles per
+    callback."""
     if config is None:
         config = SolverConfig()
     rhs, x0 = solve_inputs(problem, rhs, x0, config, mesh)
+    if interrupt_check is None and not isinstance(mesh, DistMesh) and graph.programs_on(rhs.device):
+        return _solve_program(problem, rhs, x0, config, mesh)
     return run_stages(solve_stages(problem, config, mesh), problem, rhs, x0, config, interrupt_check)
+
+
+def _solve_program(problem: PoissonProblem, rhs, x0, config: SolverConfig, mesh) -> cg_mod.CGResult:
+    """`solve` as the cached program of its key (see `solve`)."""
+    def fn(problem, rhs, x0, device_loop):
+        return run_stages(solve_stages(problem, config, mesh), problem, rhs, x0, config, device_loop=device_loop)
+
+    result = graph.call("solve", (config, mesh), fn, (problem, rhs, x0), rhs.device,
+                        prepare=capture_prepare(problem, config), loop=True)
+    return host_result(result)
+
+
+def capture_prepare(problem: PoissonProblem, config: SolverConfig):
+    """What a captured solve of `problem` must find made (`graph.Program`'s
+    `prepare`): the matrix-form transfers' matrices for its levels'
+    shapes and field dtypes (`transfer.prepare`; `transfer._matrix`
+    refuses under a capture)."""
+    hier = problem.hier
+    dev = problem.fine.diag.device
+    shapes = mg_mod.level_shapes(hier)
+    dtypes = {hier.levels[0].diag.dtype, mg_mod.field_dtype(hier, config)}
+
+    def prepare():
+        if mg_mod.use_mm_transfers(config, dev):
+            transfer.prepare(shapes, dev, dtypes)
+
+    return prepare
+
+
+def host_result(result: cg_mod.CGResult) -> cg_mod.CGResult:
+    """A device-only solve's result (`cg.solve_pcg_fused(device_loop=)`)
+    with its iteration count, relative residual and convergence read to
+    the host in one transfer, as `solve` returns them (as it is where
+    they are on the host already)."""
+    if not isinstance(result.iterations, torch.Tensor):
+        return result
+    it, rel, converged = cg_mod.host(result.iterations, result.relative_residual, result.converged)
+    return result._replace(iterations=int(it), relative_residual=rel, converged=bool(converged))
 
 
 def solve_inputs(problem: PoissonProblem, rhs: torch.Tensor, x0, config: SolverConfig, mesh=None):

@@ -162,6 +162,13 @@ def test_loop_matches_jax(name):
         assert got.converged and abs(float(got.x[torch.from_numpy(rhs) != 0].mean())) < 1e-10
 
 
+@functools.lru_cache(maxsize=None)
+def _eager_solve(name):
+    """The eager loop's solve of a case, made once for all its K values."""
+    mesh = parallel.make_mesh(4, device="cpu") if name == "block_mesh" else None
+    return _port_solve(name, run_loop=cg.run_eager, mesh=mesh)
+
+
 def _same(a, b) -> bool:
     return torch.equal(torch.nan_to_num(a, nan=-7.0), torch.nan_to_num(b, nan=-7.0)) and bool(
         (a.isnan() == b.isnan()).all()
@@ -177,7 +184,7 @@ def test_emulated_replays_match_eager(name, k, monkeypatch):
     a (2, 2, 1) block mesh, every level sharded (the CG step scatters p'
     into the loop's buffers)."""
     mesh = parallel.make_mesh(4, device="cpu") if name == "block_mesh" else None
-    eager, seen_eager = _port_solve(name, run_loop=cg.run_eager, mesh=mesh)
+    eager, seen_eager = _eager_solve(name)
     replayed, seen = _port_solve(name, run_loop=_emulated(monkeypatch, k), mesh=mesh)
     assert replayed.iterations == eager.iterations and replayed.converged == eager.converged
     assert torch.equal(replayed.x, eager.x)

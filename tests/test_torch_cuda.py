@@ -15,6 +15,7 @@ once, so kernel and plain differ by at most one bf16 ulp at the output's
 scale (plus the fp32 term).
 """
 
+import dataclasses
 import math
 
 import numpy as np
@@ -942,13 +943,16 @@ def _graph_case(device, variant):
 
 
 def _counted_solve(setup, rhs, cfg, mesh, **kw):
+    """One solve with the program cache off (its CG loop captured per
+    solve, `graph.run`, or eager): the result, launch counts and stats."""
     from geometricmultigridpressuresolver_tpu_torch.ops import _cuda
     from geometricmultigridpressuresolver_tpu_torch.solver import graph
 
     for c in _cuda.COUNTERS:
         c.reset()
     graph.STATS.reset()
-    result = mgpcg.solve(setup.problem, rhs, config=cfg, mesh=mesh, **kw)
+    with graph.programs_off():
+        result = mgpcg.solve(setup.problem, rhs, config=cfg, mesh=mesh, **kw)
     torch.cuda.synchronize()
     return result, {c.name: c.count for c in _cuda.COUNTERS}, dict(vars(graph.STATS))
 
@@ -1023,11 +1027,13 @@ def test_graph_pool_released_after_solve(device):
     from geometricmultigridpressuresolver_tpu_torch.solver import graph
 
     setup, rhs, cfg, mesh = _graph_case(device, "fp32")
+    graph.PROGRAMS.clear()
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     before = _private_pools()
     graph.STATS.reset()
-    assert mgpcg.solve(setup.problem, rhs, config=cfg).converged
+    with graph.programs_off():
+        assert mgpcg.solve(setup.problem, rhs, config=cfg).converged
     assert graph.STATS.captures == 1
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
@@ -1037,7 +1043,7 @@ def test_graph_pool_released_after_solve(device):
 def test_graph_capture_raises(device, monkeypatch):
     """A failed capture raises (here: a host read inside the iteration);
     the loop does not fall back to eager launches."""
-    from geometricmultigridpressuresolver_tpu_torch.solver import cg
+    from geometricmultigridpressuresolver_tpu_torch.solver import cg, graph
 
     setup, rhs, cfg, mesh = _graph_case(device, "fp32")
     tail = cg.FusedCG.tail
@@ -1047,10 +1053,11 @@ def test_graph_capture_raises(device, monkeypatch):
         float(s.rho)  # a sync: illegal while capturing
 
     monkeypatch.setattr(cg.FusedCG, "tail", reading_tail)
-    with pytest.raises(RuntimeError):
+    with graph.programs_off(), pytest.raises(RuntimeError):
         mgpcg.solve(setup.problem, rhs, config=cfg)
     monkeypatch.undo()
-    assert mgpcg.solve(setup.problem, rhs, config=cfg).converged  # the card is usable again
+    with graph.programs_off():
+        assert mgpcg.solve(setup.problem, rhs, config=cfg).converged  # the card is usable again
 
 
 def test_device_counts_match_host_built_lists(device):
@@ -1093,7 +1100,9 @@ def test_device_counts_match_host_built_lists(device):
 def _frames(device, n=64, frames=4, chunk=2, eager=False, **kw):
     """run_fused on the n^3 splash (fp32, the bench configuration) with its
     frames as one graph each, or eagerly (`graph.EmulatedFrame`); the
-    device launch counts and `graph.STATS` of the call."""
+    device launch counts and `graph.STATS` of the call.  The program cache
+    is off (the geometry's setup eager), so the frame graph is the call's
+    only capture."""
     from geometricmultigridpressuresolver_tpu_torch.ops import _cuda
     from geometricmultigridpressuresolver_tpu_torch.solver import graph
 
@@ -1107,7 +1116,8 @@ def _frames(device, n=64, frames=4, chunk=2, eager=False, **kw):
     if eager:
         simulate.frame_runner = lambda dev: graph.EmulatedFrame
     try:
-        out = simulate.run_fused(phi, velocity, weights, num_frames=frames, chunk=chunk, config=cfg, **kw)
+        with graph.programs_off():
+            out = simulate.run_fused(phi, velocity, weights, num_frames=frames, chunk=chunk, config=cfg, **kw)
     finally:
         simulate.frame_runner = runner
     torch.cuda.synchronize()
@@ -1176,3 +1186,149 @@ def test_frame_capture_raises_and_the_next_capture_works(device, monkeypatch):
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     assert _private_pools() <= before
+
+
+def _program_case(device, n=64, shift=0):
+    """The bench configuration and a free drop at n^3 (moved `shift`
+    cells along x) with the splash's velocity."""
+    cfg = SolverConfig(solve_dtype=torch.float32, mg_ew_dtype=torch.bfloat16, tolerance=1e-5)
+    points, _ = sdf.cell_centers((n,) * 3, device=device, dtype=torch.float32)
+    phi = torch.roll(sdf.sphere_sdf(points, (0.35, 0.45, 0.5), 0.2), shift, dims=0)  # air rolls in
+    _, velocity = sdf.splash_scene((n,) * 3, device=device, dtype=torch.float32)
+    return cfg, phi, velocity, sdf.open_box_weights((n,) * 3, device=device, dtype=torch.float32)
+
+
+def _tree_equal(a, b) -> bool:
+    from geometricmultigridpressuresolver_tpu_torch.solver import graph
+
+    ta, tb = graph.tensors(a), graph.tensors(b)
+    return len(ta) == len(tb) and all(x.shape == y.shape and torch.equal(x, y) for x, y in zip(ta, tb))
+
+
+@pytest.mark.parametrize("fusion", ["fused", "per-level"])
+def test_program_hit_bit_equal_to_fresh_capture(device, fusion):
+    """Setup, projection and solve replayed from the program cache give
+    the bits of a fresh capture and of the cache off; the second call
+    captures nothing."""
+    from geometricmultigridpressuresolver_tpu_torch.solver import graph
+
+    cfg, phi, velocity, weights = _program_case(device)
+    cfg = dataclasses.replace(cfg, setup_fusion=fusion)
+
+    def once():
+        setup = free_surface.build_setup(phi, weights, config=cfg)
+        result = free_surface.project(setup, velocity, config=cfg)
+        rhs = free_surface.embed_window(free_surface.negative_divergence(setup.liquid_mask, velocity, setup.weights),
+                                        setup.window_start, setup.base_pads, setup.expanded_shape)
+        return setup, result, mgpcg.solve(setup.problem, rhs, config=cfg)
+
+    graph.PROGRAMS.clear()
+    graph.STATS.reset()
+    fresh = once()
+    captures = sum(graph.STATS.program_captures.values())
+    hit = once()
+    assert sum(graph.STATS.program_captures.values()) == captures  # the second problem replays the solve
+    assert graph.STATS.program_hits["project"] == graph.STATS.program_hits["solve"] == 1
+    assert graph.STATS.captures == 0
+    with graph.programs_off():
+        off = once()
+    for a, b, c in zip(fresh, hit, off):
+        assert _tree_equal(a, b) and _tree_equal(a, c)
+    assert fresh[1].cg.iterations == hit[1].cg.iterations == off[1].cg.iterations > 1
+
+
+def test_held_setup_and_result_are_never_overwritten(device):
+    """A replay writes the program's own buffers: a setup and a result the
+    caller holds keep their values when the same programs run for a moved
+    drop in the kept window."""
+    from geometricmultigridpressuresolver_tpu_torch.solver import graph
+
+    cfg, phi, velocity, weights = _program_case(device)
+    _, moved, _, _ = _program_case(device, shift=3)
+    graph.PROGRAMS.clear()
+    graph.STATS.reset()
+    s1 = free_surface.build_setup(phi, weights, config=cfg)
+    r1 = free_surface.project(s1, velocity, config=cfg, old_pressure=torch.zeros_like(phi))
+    kept = ([t.clone() for t in graph.tensors(s1)], [t.clone() for t in graph.tensors(r1)])
+    s2 = free_surface.build_setup(moved, weights, config=cfg, reuse_from=s1)
+    r2 = free_surface.project(s2, velocity, config=cfg, old_pressure=r1.pressure)
+    assert s2.expanded_shape == s1.expanded_shape and s2.window_start != s1.window_start
+    assert graph.STATS.program_hits["setup"] == 1
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(kept[0], graph.tensors(s1)))
+    assert all(torch.equal(a, b) for a, b in zip(kept[1], graph.tensors(r1)))
+    assert not torch.equal(r1.pressure, r2.pressure)
+
+
+def test_program_eviction_releases_pools(device, monkeypatch):
+    """Each program's pool goes with it: past the cache's capacity the
+    least recently used programs go, and after `clear` and `empty_cache`
+    no private pool the programs made holds memory."""
+    from geometricmultigridpressuresolver_tpu_torch.solver import graph
+
+    cfg, phi, velocity, weights = _program_case(device)
+    graph.PROGRAMS.clear()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    before = _private_pools()
+    setup = free_surface.build_setup(phi, weights, config=cfg)
+    free_surface.project(setup, velocity, config=cfg)
+    assert len(graph.PROGRAMS) == 2 and _private_pools() > before
+    graph.STATS.reset()
+    monkeypatch.setattr(graph.PROGRAMS, "capacity", 1)  # a new program evicts both older ones
+    free_surface.project(setup, velocity, config=cfg, old_pressure=torch.zeros_like(phi))
+    assert len(graph.PROGRAMS) == 1 and sum(graph.STATS.program_evictions.values()) == 2
+    graph.PROGRAMS.clear()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    assert _private_pools() <= before
+
+
+def test_program_over_budget_runs_uncached(device, monkeypatch):
+    """A projection whose program would take more than half the cache's
+    budget (as the last one captured says) is not captured as a program:
+    it runs as with the cache off (the CG loop captured for the solve),
+    bit-equal to it, and is counted as declined; the cached programs
+    stay."""
+    from geometricmultigridpressuresolver_tpu_torch.solver import graph
+
+    cfg, phi, velocity, weights = _program_case(device)
+    graph.PROGRAMS.clear()
+    setup = free_surface.build_setup(phi, weights, config=cfg)
+    free_surface.project(setup, velocity, config=cfg)  # a projection program's size on record
+    project_bytes = sum(p.pool_bytes for k, p in graph.PROGRAMS.entries.items() if k[0] == "project")
+    total = torch.cuda.get_device_properties(torch.device(device)).total_memory
+    monkeypatch.setattr(graph.PROGRAMS, "budget", project_bytes / total)  # half of it is the limit
+    graph.STATS.reset()
+    old = torch.zeros_like(phi)  # a warm start: another key
+    got = [free_surface.project(setup, velocity, config=cfg, old_pressure=old) for _ in range(3)]
+    assert graph.STATS.program_captures["project"] == 0 and graph.STATS.program_hits["project"] == 0
+    assert graph.STATS.program_declined["project"] == 3 and graph.STATS.captures == 3
+    assert len(graph.PROGRAMS) == 2 and sum(graph.STATS.program_evictions.values()) == 0
+    with graph.programs_off():
+        want = free_surface.project(setup, velocity, config=cfg, old_pressure=old)
+    for g in got:
+        assert g.cg.iterations == want.cg.iterations and torch.equal(g.pressure, want.pressure)
+    graph.PROGRAMS.clear()
+
+
+def test_program_capture_raises(device, monkeypatch):
+    """A failed program capture (a host read inside the CG iteration)
+    raises, caches nothing and runs nothing eagerly in its place; the next
+    call captures and runs."""
+    from geometricmultigridpressuresolver_tpu_torch.solver import cg, graph
+
+    setup, rhs, cfg, mesh = _graph_case(device, "fp32")
+    graph.PROGRAMS.clear()
+    tail = cg.FusedCG.tail
+
+    def reading_tail(self, s):
+        tail(self, s)
+        float(s.rho)  # a sync: illegal while capturing
+
+    monkeypatch.setattr(cg.FusedCG, "tail", reading_tail)
+    with pytest.raises(RuntimeError):
+        mgpcg.solve(setup.problem, rhs, config=cfg)
+    assert len(graph.PROGRAMS) == 0
+    monkeypatch.undo()
+    assert mgpcg.solve(setup.problem, rhs, config=cfg).converged and len(graph.PROGRAMS) == 1

@@ -3,8 +3,8 @@
 The port must import and run a small projection, two fused frames and a
 checkpoint with JAX blocked, must not
 import Triton or start nvcc at import time, must refuse the JAX package's
-knobs that have no meaning on the card, and must refuse kernel_mode="cuda"
-on CPU tensors.
+knobs that have no meaning on the card, must resolve the ones it runs as
+the JAX package does, and must refuse kernel_mode="cuda" on CPU tensors.
 """
 
 import re
@@ -83,7 +83,7 @@ def test_no_jax_import_in_port_sources():
     "knob, value",
     [
         ("pallas_interpret", True), ("pallas_block_t", 32), ("pallas_block_y", 48),
-        ("pallas_pad_coarse", True), ("setup_fusion", "fused"),
+        ("pallas_pad_coarse", True),
     ],
 )
 def test_config_refuses_tpu_only_knobs(knob, value):
@@ -101,6 +101,7 @@ def test_config_refuses_tpu_only_knobs(knob, value):
         ("advection", "semi_lagrangian", "upwind", "maccormack"),
         ("interior_smoother", None, "chebyshev", "jacobi"),
         ("transfer_mode", "auto", "mm", "bad"),
+        ("setup_fusion", "auto", "per-level", "per_level"),
     ],
 )
 def test_config_accepts_ported_knobs(knob, default, good, bad):
@@ -112,6 +113,22 @@ def test_config_accepts_ported_knobs(knob, default, good, bad):
     assert getattr(SolverConfig(**{knob: good}), knob) == good
     with pytest.raises(ValueError):
         SolverConfig(**{knob: bad})
+
+
+@pytest.mark.parametrize("fusion", ["auto", "fused", "per-level"])
+@pytest.mark.parametrize("n_devices", [1, 4])
+@pytest.mark.parametrize("shape", [
+    (384, 384, 640), (448, 448, 478), (448, 448, 512), (1000, 1000, 96), (1000, 1000, 97), (8, 8, 8),
+])
+def test_setup_fusion_resolves_like_jax(shape, n_devices, fusion):
+    """The granularity the port picks for a window is the JAX package's,
+    around its 96M-cell threshold, per device of a mesh."""
+    from geometricmultigridpressuresolver_tpu.config import SolverConfig as JaxConfig
+
+    assert SolverConfig.SETUP_FUSION_AUTO_CELLS == JaxConfig.SETUP_FUSION_AUTO_CELLS
+    got = SolverConfig(setup_fusion=fusion).setup_fusion_resolved(shape, n_devices)
+    assert got == JaxConfig(setup_fusion=fusion).setup_fusion_resolved(shape, n_devices)
+    assert got in ("fused", "per-level")
 
 
 @pytest.mark.parametrize("mode, device, want", [

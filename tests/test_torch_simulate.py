@@ -4,9 +4,11 @@ Same numpy inputs through both packages, fp64.  Advection (semi-Lagrangian
 and upwind, scalar and velocity) agrees to 1e-12; `run` agrees frame by
 frame: equal CG iteration counts and equal window shapes, and the liquid
 SDF, velocity and pressure within 1e-9 (rounding carried through three
-projections).
+projections), also with its setup and projection as cached programs
+(`setup_fusion` "fused" and "per-level").
 """
 
+import functools
 import io
 from contextlib import redirect_stdout
 
@@ -21,6 +23,8 @@ from geometricmultigridpressuresolver_tpu.models import sdf as jax_sdf
 from geometricmultigridpressuresolver_tpu.models import simulate as jax_sim
 from geometricmultigridpressuresolver_tpu_torch.config import SolverConfig
 from geometricmultigridpressuresolver_tpu_torch.models import free_surface, sdf, simulate
+from geometricmultigridpressuresolver_tpu_torch.solver import graph
+from tests import torch_programs
 
 torch.set_num_threads(1)
 
@@ -93,17 +97,28 @@ RUNS = {
 }
 
 
+@functools.lru_cache(maxsize=None)
+def _jax_run(name):
+    """JAX's `run` of a RUNS entry: (frames, window shape per frame),
+    computed once per module (its compiles dominate the file's time)."""
+    scene, n, frames, dt, kwargs = RUNS[name]
+    phi, velocity, weights = scene(n)
+    shapes = []
+    jframes = jax_sim.run(
+        jnp.asarray(phi), tuple(map(jnp.asarray, velocity)), weights, num_frames=frames,
+        dt=dt, config=JaxConfig(tolerance=1e-6, max_iterations=300, **kwargs),
+        on_frame=lambda k, fr: shapes.append(tuple(fr.setup.expanded_shape)),
+    )
+    return jframes, shapes
+
+
 @pytest.mark.parametrize("name", list(RUNS))
 def test_run_matches_jax_frame_by_frame(name):
     scene, n, frames, dt, kwargs = RUNS[name]
     phi, velocity, weights = scene(n)
     common = dict(tolerance=1e-6, max_iterations=300, **kwargs)
-    shapes = {"jax": [], "port": []}
-    jframes = jax_sim.run(
-        jnp.asarray(phi), tuple(map(jnp.asarray, velocity)), weights, num_frames=frames,
-        dt=dt, config=JaxConfig(**common),
-        on_frame=lambda k, fr: shapes["jax"].append(tuple(fr.setup.expanded_shape)),
-    )
+    shapes = {"jax": None, "port": []}
+    jframes, shapes["jax"] = _jax_run(name)
     tframes = simulate.run(
         phi, velocity, weights, num_frames=frames, dt=dt, config=SolverConfig(**common),
         on_frame=lambda k, fr: shapes["port"].append(fr.setup.expanded_shape), device="cpu",
@@ -127,6 +142,44 @@ def test_run_matches_jax_frame_by_frame(name):
         assert shapes["port"][1] != shapes["port"][0]
     else:
         assert all(reused[1:])
+
+
+@pytest.mark.parametrize("fusion", ["fused", "per-level"])
+def test_run_through_programs_matches_jax(fusion, monkeypatch):
+    """run() with its setup and projection as cached programs (emulated
+    on the CPU, `tests.torch_programs.EmulatedProgram`) at either `setup_fusion`
+    granularity, on the drop whose window regrows at frame 2 and is kept
+    after: JAX's window shapes, iterations and pressure within 1e-9; the
+    setup captured once per window shape and the projection once per
+    (window, coarse bucket, warm start), every other frame a replay; the
+    eager run's bits."""
+    torch_programs.emulate(monkeypatch)
+    name = "stretching_drop_regrows"
+    scene, n, frames, dt, kwargs = RUNS[name]
+    phi, velocity, weights = scene(n)
+    jframes, jshapes = _jax_run(name)
+    keys = []
+
+    def on_frame(k, fr):
+        hier = fr.setup.problem.hier
+        keys.append((fr.setup.expanded_shape, hier.coarse_minv.shape[0], k > 0))
+
+    common = dict(tolerance=1e-6, max_iterations=300, **kwargs)
+    tframes = simulate.run(phi, velocity, weights, num_frames=frames, dt=dt,
+                           config=SolverConfig(setup_fusion=fusion, **common), on_frame=on_frame, device="cpu")
+    assert [k[0] for k in keys] == jshapes and len({k[0] for k in keys}) == 2
+    for jf, tf in zip(jframes, tframes):
+        assert tf.iterations == jf.iterations > 0
+        np.testing.assert_allclose(tf.pressure.numpy(), np.asarray(jf.pressure), rtol=0, atol=1e-9)
+    captures, hits = graph.STATS.program_captures, graph.STATS.program_hits
+    assert (captures["setup"], hits["setup"]) == (2, frames - 2)
+    assert (captures["project"], hits["project"]) == (len(set(keys)), frames - len(set(keys)))
+    with graph.programs_off():
+        eager = simulate.run(phi, velocity, weights, num_frames=frames, dt=dt, config=SolverConfig(**common),
+                             device="cpu")
+    for a, b in zip(tframes, eager):
+        assert a.iterations == b.iterations and torch.equal(a.pressure, b.pressure)
+        assert all(torch.equal(u, v) for u, v in zip(a.velocity, b.velocity))
 
 
 def test_build_setup_reuse_from_matches_jax():
